@@ -5,6 +5,6 @@ from .types import (  # noqa: F401
 from .chunk import (  # noqa: F401
     DEFAULT_CHUNK_CAPACITY, OP_DELETE, OP_INSERT, OP_UPDATE_DELETE,
     OP_UPDATE_INSERT, Column, StreamChunk, chunk_to_rows, count_units,
-    gather_units_window, make_chunk,
+    flatten_shards, gather_units_window, make_chunk, map_tensors,
 )
 from .hashing import VNODE_COUNT, hash_columns, vnode_of  # noqa: F401

@@ -68,6 +68,20 @@ class StreamChunk:
         return torch.where(self.vis, s, torch.zeros_like(s))
 
 
+def map_tensors(chunk: StreamChunk, f) -> StreamChunk:
+    """The chunk with ``f`` applied to every tensor (ops, vis, each column's
+    data and mask)."""
+    return StreamChunk(f(chunk.ops), f(chunk.vis),
+                       tuple(Column(f(c.data), f(c.mask))
+                             for c in chunk.columns))
+
+
+def flatten_shards(chunk: StreamChunk) -> StreamChunk:
+    """A batched chunk ([k, cap] tensors) as ONE chunk of k*cap rows, in
+    row-major order (vis already masks the invalid rows)."""
+    return map_tensors(chunk, lambda a: a.reshape((-1,) + a.shape[2:]))
+
+
 def make_chunk(
     schema: Schema,
     rows: Sequence[Sequence[Any]],
@@ -142,22 +156,31 @@ def gather_units_window(chunk: StreamChunk, lo: int,
     """Pack the units with index in [lo, lo + out_capacity//2) into a fresh
     chunk of ``out_capacity`` rows (2 slots per unit; vis masks the gaps).
 
-    Rows outside the window are sent to a sentinel slot past the end of a
-    ``C + 1`` buffer that is cut off afterwards (the reference's
-    ``mode="drop"``); only dropped rows share that slot."""
+    A gather: output unit g reads the row where the inclusive count of unit
+    starts first reaches lo + g + 1 (``searchsorted``), and the row after it
+    when that one is attached. Rows outside the window are never touched,
+    so a window over a large, mostly invisible chunk (the fused q7 probe
+    drain) costs the window's size, not the chunk's, and no store contends
+    for a shared sentinel cell."""
     G = out_capacity // 2
-    C = out_capacity
-    unit_index, attached, _ = _update_units(chunk)
-    in_win = chunk.vis & (unit_index >= lo) & (unit_index < lo + G)
-    pos = torch.where(in_win, 2 * (unit_index - lo) + attached.long(),
-                      torch.full_like(unit_index, C))
+    n = chunk.capacity
+    _, attached, unit_start = _update_units(chunk)
+    starts = torch.cumsum(unit_start, 0)
+    g = lo + torch.arange(G, dtype=torch.int64, device=starts.device)
+    valid = g < starts[-1]
+    first = torch.where(valid, torch.searchsorted(starts, g + 1), 0)
+    second = torch.clamp_max(first + 1, n - 1)
+    pair = valid & (first + 1 < n) & attached[second]
+    src = torch.stack([first, second], 1).reshape(2 * G)
+    vis = torch.stack([valid, pair], 1).reshape(2 * G)
+    if out_capacity > 2 * G:       # odd capacity: the last slot stays empty
+        src = torch.cat([src, src.new_zeros(1)])
+        vis = torch.cat([vis, vis.new_zeros(1)])
 
-    def place(src: torch.Tensor) -> torch.Tensor:
-        out = torch.zeros(C + 1, dtype=src.dtype, device=src.device)
-        out.index_put_((pos,), src)
-        return out[:C]
+    def take(a: torch.Tensor) -> torch.Tensor:
+        return torch.where(vis, a[src], torch.zeros((), dtype=a.dtype,
+                                                     device=a.device))
 
-    ops = place(chunk.ops)
-    vis = place(torch.ones_like(chunk.vis))
-    cols = tuple(Column(place(c.data), place(c.mask)) for c in chunk.columns)
-    return StreamChunk(ops, vis, cols)
+    return StreamChunk(take(chunk.ops), vis,
+                       tuple(Column(take(c.data), take(c.mask))
+                             for c in chunk.columns))

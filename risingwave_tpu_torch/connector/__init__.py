@@ -1,4 +1,4 @@
 from .nexmark import (  # noqa: F401
     AUCTION_SCHEMA, BID_SCHEMA, PERSON_SCHEMA, NexmarkConfig,
-    NexmarkGenerator,
+    DeviceBidGenerator, NexmarkGenerator,
 )

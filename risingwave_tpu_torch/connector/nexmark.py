@@ -6,21 +6,26 @@ From the same seed it draws the same numbers in the same order as the
 reference, so both packages see the same rows. VARCHAR columns carry
 dictionary ids; the string dictionary is not ported, so the generator keeps
 its own vocabulary (``vocab[id]``) with ids assigned in the order in which
-the reference interns the same strings into a fresh dictionary. The
-on-device generator (``DeviceBidGenerator``) is not ported yet.
+the reference interns the same strings into a fresh dictionary.
+
+``DeviceBidGenerator`` is the benchmark source: bids drawn on the device from
+counter-based Threefry keys (``threefry.py``), the same numbers the
+reference's ``DeviceBidGenerator`` draws from the same start and key.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Optional
 
 import numpy as np
 import torch
 
 from .. import DEFAULT_DEVICE
-from ..common.chunk import Column, StreamChunk
+from ..common.chunk import Column, StreamChunk, map_tensors
 from ..common.types import INT64, TIMESTAMP, VARCHAR, Schema
+from . import threefry
 
 BID_SCHEMA = Schema.of(
     ("auction", INT64), ("bidder", INT64), ("price", INT64),
@@ -56,6 +61,7 @@ NUM_CATEGORIES = 5
 _CHANNELS = ["Google", "Facebook", "Baidu", "Apple"]
 _US_STATES = ["AZ", "CA", "ID", "OR", "WY"]
 _CITIES = ["Phoenix", "Los Angeles", "San Francisco", "Boise", "Portland"]
+_URLS = [f"https://www.nexmark.com/item{i}" for i in range(64)]
 
 
 @dataclasses.dataclass
@@ -85,8 +91,7 @@ class NexmarkGenerator:
             return ids
 
         self._channel_ids = intern(_CHANNELS)
-        self._url_ids = intern(
-            [f"https://www.nexmark.com/item{i}" for i in range(64)])
+        self._url_ids = intern(_URLS)
         self._city_ids = intern(_CITIES)
         self._state_ids = intern(_US_STATES)
         self._name_ids = intern([f"person-{i}" for i in range(997)])
@@ -181,3 +186,114 @@ class NexmarkGenerator:
         return self._chunk(
             PERSON_SCHEMA, [ids, name, email, card, city, state, ts, extra],
             n)
+
+
+class DeviceBidGenerator:
+    """Bid chunks generated on the device, bit-exact with the reference's
+    ``DeviceBidGenerator`` (``risingwave_tpu/connector/nexmark.py``).
+
+    Per chunk the only inputs are the first event id and a Threefry key, so
+    generation is replayable from ``(seed, batch_no)`` alone. The draws are
+    the reference's, in its order, from ``split(key, 7)``: hot auction
+    (uniform < 0.9), cold auction offset, hot bidder, cold bidder offset,
+    price (``100 * exp(u * log 1000)`` in float64, truncated), channel and
+    url. VARCHAR ids index ``vocab`` (the reference's ids index its process
+    dictionary, so compare strings, not ids)."""
+
+    def __init__(self, config: NexmarkConfig = NexmarkConfig(),
+                 seed: int = 42, device=DEFAULT_DEVICE):
+        self.cfg = config
+        self.device = torch.device(device)
+        self.events_so_far = 0
+        self._batch_no = 0
+        self._seed = seed
+        self.vocab: list[str] = ["", *_CHANNELS, *_URLS]
+        self._channel_ids = torch.arange(1, 1 + len(_CHANNELS),
+                                         dtype=torch.int32, device=device)
+        self._url_ids = torch.arange(1 + len(_CHANNELS), len(self.vocab),
+                                     dtype=torch.int32, device=device)
+        self._empty = 0
+
+    def _gen_rows(self, starts: torch.Tensor, keys: torch.Tensor,
+                  n: int) -> StreamChunk:
+        """``n`` bids from each (first event id, key) pair: ``starts``
+        int64[m] and ``keys`` [m, 2] give a chunk of [m, n] columns."""
+        cfg = self.cfg
+        eids = starts[:, None] + torch.arange(n, dtype=torch.int64,
+                                              device=starts.device)
+        us_per_event = max(1_000_000 // max(cfg.events_per_second, 1), 1)
+        ts = cfg.start_time_us + eids * us_per_event
+        epoch = eids // TOTAL_PROPORTION
+        last_auction = FIRST_AUCTION_ID + epoch * AUCTION_PROPORTION
+        last_person = FIRST_PERSON_ID + epoch * PERSON_PROPORTION
+        ks = threefry.split(keys, 7)
+
+        def key(j):
+            return ks[:, j, :]
+
+        hot = threefry.uniform(key(0), (n,)) < 0.9
+        hot_auction = (last_auction // HOT_AUCTION_RATIO) * HOT_AUCTION_RATIO
+        cold_auction = last_auction - threefry.randint(
+            key(1), (n,), 0, cfg.in_flight_auctions)
+        auction = torch.where(hot, hot_auction, cold_auction)
+        hot_b = threefry.uniform(key(2), (n,)) < 0.9
+        hot_bidder = (last_person // HOT_BIDDER_RATIO) * HOT_BIDDER_RATIO + 1
+        cold_bidder = torch.clamp_min(
+            last_person - threefry.randint(key(3), (n,), 0,
+                                           cfg.active_people),
+            FIRST_PERSON_ID)
+        bidder = torch.where(hot_b, hot_bidder, cold_bidder)
+        price = (100.0 * torch.exp(threefry.uniform(key(4), (n,))
+                                   * math.log(1000.0))).to(torch.int64)
+        channel = self._channel_ids[threefry.randint(
+            key(5), (n,), 0, self._channel_ids.shape[0])]
+        url = self._url_ids[threefry.randint(
+            key(6), (n,), 0, self._url_ids.shape[0])]
+        extra = torch.full_like(channel, self._empty)
+        full = torch.ones_like(hot)
+        cols = tuple(Column(a, full) for a in (
+            auction, bidder, price, channel, url, ts, extra))
+        return StreamChunk(torch.zeros_like(channel, dtype=torch.int8),
+                           full, cols)   # append-only source
+
+    def _gen_impl(self, start, key: torch.Tensor, k: int) -> StreamChunk:
+        """``k`` chunks of bids from ONE key (the reference's batch form):
+        [k, chunk_capacity] columns."""
+        cap = self.cfg.chunk_capacity
+        ch = self._gen_rows(_one_start(start, key.device), key[None],
+                            k * cap)
+        return map_tensors(ch, lambda a: a.reshape(k, cap))
+
+    def next_batch(self, k: int) -> StreamChunk:
+        """``k`` full chunks as one [k, chunk_capacity] chunk."""
+        key = threefry.fold_in(threefry.prng_key(self._seed, self.device),
+                               self._batch_no)
+        self._batch_no += 1
+        start = self.events_so_far
+        self.events_so_far += k * self.cfg.chunk_capacity
+        return self._gen_impl(start, key, k)
+
+    def chunk_fn(self):
+        """``(start_event_id, key) -> StreamChunk``: ONE chunk of
+        ``chunk_capacity`` bids, as the reference's ``chunk_fn``. It also
+        takes a batch — ``start`` int64[k] and ``key`` [k, 2] — and then
+        returns the k chunks at once as [k, chunk_capacity] columns, chunk i
+        equal to ``fn(start[i], key[i])``; the fused epochs generate a whole
+        epoch in that one call."""
+        cap = self.cfg.chunk_capacity
+
+        def fn(start, key):
+            if key.dim() == 1:
+                ch = self._gen_rows(_one_start(start, key.device), key[None],
+                                    cap)
+                return map_tensors(ch, lambda a: a[0])
+            return self._gen_rows(start, key, cap)
+
+        return fn
+
+
+def _one_start(start, device) -> torch.Tensor:
+    """A first event id (Python int or int64 tensor scalar) as int64[1]."""
+    if isinstance(start, torch.Tensor):
+        return start.to(device=device, dtype=torch.int64).reshape(1)
+    return torch.full((1,), start, dtype=torch.int64, device=device)

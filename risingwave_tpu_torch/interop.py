@@ -1,7 +1,8 @@
 """Carry state across from the JAX package.
 
-Turns the reference's ``StreamChunk``, ``DeviceHashTable``, ``AggState`` and
-``JoinState`` into this package's tensors on a given device. The reference
+Turns the reference's ``StreamChunk``, ``DeviceHashTable``, ``AggState``,
+``JoinState``, ``IntervalJoinState`` and PRNG keys into this package's
+tensors on a given device. The reference
 objects arrive as nested numpy arrays under the JAX field names: either the
 flax dataclasses with numpy leaves (``jax.tree_util.tree_map(np.asarray,
 state)``) or plain mappings. Nothing of JAX is imported here. Fields that the
@@ -20,6 +21,7 @@ from . import DEFAULT_DEVICE
 from .common.chunk import Column, StreamChunk
 from .ops.grouped_agg import AggState
 from .ops.hash_table import DeviceHashTable
+from .ops.interval_join import IntervalJoinState, state_from_host
 from .ops.join_state import JoinSideState, JoinState
 
 
@@ -71,3 +73,18 @@ def join_side_from_jax(side: Any, device=DEFAULT_DEVICE) -> JoinSideState:
 def join_state_from_jax(state: Any, device=DEFAULT_DEVICE) -> JoinState:
     return JoinState(left=join_side_from_jax(_get(state, "left"), device),
                      right=join_side_from_jax(_get(state, "right"), device))
+
+
+def interval_join_state_from_jax(state: Any,
+                                 device=DEFAULT_DEVICE) -> IntervalJoinState:
+    return state_from_host(state, device)
+
+
+def prng_key_from_jax(key_data: Any, device=DEFAULT_DEVICE) -> torch.Tensor:
+    """A reference key's two uint32 words (``jax.random.key_data(key)`` as
+    numpy) as this package's Threefry key (``connector/threefry.py``)."""
+    words = np.asarray(key_data)
+    if words.dtype != np.uint32 or words.shape[-1:] != (2,):
+        raise ValueError(f"want uint32[..., 2] key data, got {words.dtype}"
+                         f"{list(words.shape)}")
+    return torch.tensor(words.astype(np.int64), device=device)

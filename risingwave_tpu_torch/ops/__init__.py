@@ -5,3 +5,6 @@ from .grouped_agg import AggCore, AggState  # noqa: F401
 from .join_state import (  # noqa: F401
     JoinCore, JoinSideState, JoinState, JoinType, import_state,
 )
+from .interval_join import (  # noqa: F401
+    IntervalJoinCore, IntervalJoinState, interval_match, interval_match_plain,
+)

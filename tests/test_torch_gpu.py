@@ -1,7 +1,9 @@
 """Tests of the PyTorch port that need a CUDA card: the hand-written kernels
-against their plain versions on the card, and the q7 pipeline on the card
-against the same pipeline on the CPU. They skip where no card is present;
-run them on the card with ``python -m pytest tests/test_torch_gpu.py -m gpu``.
+against their plain versions on the card, the q7 pipeline and the fused q7
+epoch on the card against the same runs on the CPU, and a non-integer
+float64 sum lane on the card against the CPU. They skip where no card is
+present; run them on the card with
+``python -m pytest tests/test_torch_gpu.py -m gpu``.
 """
 
 import asyncio
@@ -10,6 +12,7 @@ import numpy as np
 import pytest
 import torch
 
+from risingwave_tpu_torch.ops import interval_join as ij
 from risingwave_tpu_torch.ops import rank_totals as rt_mod
 from risingwave_tpu_torch.ops.rank_totals import (
     rank_totals, rank_totals_plain,
@@ -87,3 +90,86 @@ def test_chip_smoke_pipelines_small(cuda):
     assert got == cs.q7_expected(chunks)
     got5, _ = asyncio.run(cs.drive(cs.q5_pipeline(chunks, "cuda"), 2))
     assert got5 == cs.q5_expected(chunks)
+
+
+@pytest.mark.parametrize("nb,w,pattern", [
+    (1 << 15, 128, "random"), (1000, 128, "random"), (777, 100, "random"),
+    (512, 128, "all_occupied"), (512, 128, "none_occupied"),
+    (4096, 128, "high_words"), (1, 1, "random"), (17, 3, "high_words")])
+def test_interval_match_kernel_equals_plain(cuda, nb, w, pattern):
+    import chip_smoke as cs
+    args = cs.b2_case_inputs(nb, w, pattern, nb + w, cuda)
+    before = ij.interval_match.launches
+    got = ij.interval_match(*args)
+    want = ij.interval_match_plain(*args)
+    torch.cuda.synchronize()
+    assert ij.interval_match.launches == before + 1
+    assert all(g.dtype == torch.bool for g in got)
+    assert all(torch.equal(g, x) for g, x in zip(got, want))
+
+
+def _fused_q7_rows(device):
+    """Every drained output row of a small fused q7 run, in order."""
+    import chip_smoke as cs
+    from risingwave_tpu_torch.common import chunk_to_rows
+
+    class Rows:
+        def __init__(self):
+            self.rows = []
+
+        def add(self, chunk):
+            self.rows += chunk_to_rows(chunk, run.core.out_schema,
+                                       with_ops=True)
+
+    run = cs.FusedQ7(device, n_buckets=1024, lanes=64, chunk=512, k=8)
+    out = Rows()
+    for _ in range(3):
+        run.epoch(out)
+    return out.rows
+
+
+def test_fused_q7_on_card_equals_cpu(cuda):
+    on_card = _fused_q7_rows("cuda")
+    assert on_card == _fused_q7_rows("cpu") and on_card
+
+
+def test_fused_q7_epoch_body_makes_no_host_sync(cuda):
+    import chip_smoke as cs
+    run = cs.FusedQ7("cuda", n_buckets=1024, lanes=64, chunk=512, k=8)
+    drain, _ = cs.run_fused(run, 1)
+    run.epoch(drain, sync_check=True)
+    assert drain.multiset() == run.expected()
+
+
+def _float_sum_lanes(device):
+    """A float64 sum over non-integer values into few groups: many rows
+    add into each group's lane, in no fixed order on the card."""
+    from risingwave_tpu_torch.common import FLOAT64, INT64, Schema, \
+        make_chunk
+    from risingwave_tpu_torch.expr import agg
+    from risingwave_tpu_torch.ops.grouped_agg import AggCore
+    rng = np.random.default_rng(11)
+    schema = Schema.of(("k", INT64), ("v", FLOAT64))
+    core = AggCore((INT64,), (0,), [agg("sum", 1, FLOAT64)],
+                   table_capacity=64, out_capacity=64, device=device)
+    state = core.init_state()
+    for _ in range(4):
+        rows = [(int(rng.integers(0, 5)), float(rng.random() * 1e3 - 300))
+                for _ in range(4096)]
+        state = core.apply_chunk(state, make_chunk(schema, rows,
+                                                   capacity=4096,
+                                                   device=device))
+    return [lane.cpu() for lane in state.lanes]
+
+
+def test_float64_sum_on_card_within_bound_of_cpu(cuda):
+    """Atomic adds on the card sum in an unspecified order; over 16K
+    non-integer addends per run the float64 lane stays within a relative
+    1e-12 of the CPU's sequential sum (about 16K roundings of 2**-53)."""
+    card, cpu = _float_sum_lanes("cuda"), _float_sum_lanes("cpu")
+    assert torch.equal(card[0], cpu[0])          # row counts are exact
+    sums_card, sums_cpu = card[1], cpu[1]
+    live = cpu[0] > 0
+    assert int(live.sum()) == 5
+    assert torch.allclose(sums_card[live], sums_cpu[live], rtol=1e-12,
+                          atol=0)
