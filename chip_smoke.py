@@ -26,7 +26,8 @@ Phases (any failure exits non-zero and prints no result line):
      epoch): the device's busy share and top kernels; then one JSON line of
      every kernel: launches on its path's run, exact agreement, its time and
      its plain version's time on the inputs that run gave it, and its bound
-     on an H100;
+     on an H100 (for B1 also its time and bound summed over every input of
+     the q7 run, with each input's count of keyed rows);
   8. the last line: ``{"ok": true, "device": {...}}``.
 
 It imports nothing of JAX and nothing of the JAX package.
@@ -59,10 +60,16 @@ Q5_TABLE_CAPACITY = 1 << 21
 FUSED_TIMED_EPOCHS = 3       # after one warm-up epoch
 Q7_FUSED_SEED = 23           # bench.py measure_q7_fused
 Q5_FUSED_SEED = 17           # bench.py measure_q5_fused
-# (N, W, ident pattern) — each compared exactly with the plain version
+# (N, W, ident pattern) — each compared exactly with the plain version;
+# N = 32768 is above what kernel B1 sorts in one block's shared memory;
+# probe_256 and few_257 are chunks whose rows mostly have ident < 0
 RANK_CASES = [(4096, 128, "clustered"), (4000, 128, "clustered"),
               (4096, 128, "distinct"), (4096, 128, "none"),
-              (4096, 128, "one_hot_key"), (4096, 16, "clustered")]
+              (4096, 128, "one_hot_key"), (4096, 16, "clustered"),
+              (4096, 128, "interleaved"), (4000, 128, "one_hot_key"),
+              (1, 1, "clustered"), (4096, 129, "clustered"),
+              (4096, 128, "wide"), (32768, 128, "clustered"),
+              (4096, 128, "probe_256"), (4096, 129, "few_257")]
 # (nb, W, pattern) — interval_match against its plain version, exactly
 MATCH_CASES = [(Q7_BUCKETS, Q7_LANES, "random"), (1000, 128, "random"),
                (777, 100, "random"), (Q7_BUCKETS, Q7_LANES, "all_occupied"),
@@ -96,6 +103,19 @@ def rank_inputs(n: int, w: int, pattern: str, seed: int, device):
         ident = np.full(n, -1, np.int32)
     elif pattern == "one_hot_key":
         ident = np.zeros(n, np.int32)
+    elif pattern == "interleaved":  # 64 keys in turn: no two rows adjacent
+        ident = (np.arange(n) % 64).astype(np.int32)
+    elif pattern == "wide":         # ~1,000 keys in random order, some -1
+        ident = rng.integers(-1, 1000, n).astype(np.int32)
+    elif pattern.startswith(("probe_", "few_")):
+        # probe_k: a join probe chunk whose first k rows find one window,
+        # the rest none; few_k: k rows at random, over 8 keys
+        k = int(pattern.split("_")[1])
+        ident = np.full(n, -1, np.int32)
+        if pattern.startswith("probe_"):
+            ident[:k] = 3
+        else:
+            ident[rng.choice(n, k, replace=False)] = rng.integers(0, 8, k)
     else:
         raise ValueError(pattern)
     matches = rng.random((n, w)) < 0.3
@@ -120,9 +140,12 @@ def check_rank_totals(device) -> int:
                                  f"N={n} W={w} {pattern}")
         worst = max(worst, err)
         ms, _ = time_cuda(lambda: rank_totals(ident, matches))
-        plain_ms, _ = time_cuda(lambda: rank_totals_plain(ident, matches))
+        plain_ms, _ = time_cuda(lambda: rank_totals_plain(ident, matches),
+                                iters=10 if n > CHUNK else 50)
         print(f"rank_totals N={n} W={w} {pattern}: max_abs_err={err} "
-              f"kernel_ms={ms} plain_ms={plain_ms}")
+              f"kernel_ms={ms} bound_ms={rank_totals_bound(ident, matches)[0]}"
+              f" plain_ms={plain_ms}")
+        del r0, t0
     return worst
 
 
@@ -182,12 +205,13 @@ def interval_match_bound(nb: int, w: int):
     return (11 * nb * w + 18 * nb) / HBM_BYTES_PER_S * 1e3, "bytes"
 
 
-def time_cuda(fn, iters: int = 50, warmup: int = 5):
+def time_cuda(fn, iters: int = 50, warmup: int = 5, by_kernel=None):
     """Milliseconds per call after a warm-up: (device, wall). ``device`` is
     the summed self time of every kernel the calls ran, from the profiler's
     CUDA trace (the card's own work, free of Python launch cost); ``wall``
     is CUDA-event time around the loop, which a host-bound call inflates.
-    ``device`` is None if the profiler recorded no kernel."""
+    ``device`` is None if the profiler recorded no kernel. A dict given as
+    ``by_kernel`` receives each kernel's share, by name."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
@@ -204,29 +228,26 @@ def time_cuda(fn, iters: int = 50, warmup: int = 5):
         for _ in range(iters):
             fn()
         torch.cuda.synchronize()
-    us = sum(getattr(e, "self_device_time_total", 0)
-             for e in prof.key_averages())
-    return (us / 1e3 / iters if us > 0 else None), wall
+    per = {e.key: e.self_device_time_total / 1e3 / iters
+           for e in prof.key_averages()
+           if getattr(e, "self_device_time_total", 0) > 0}
+    if by_kernel is not None:
+        by_kernel.update(per)
+    return (sum(per.values()) if per else None), wall
 
 
 def rank_totals_bound(ident: torch.Tensor, matches: torch.Tensor):
-    """Least time on an H100 for these inputs: bytes each way once, and the
-    multiply-adds of the two products that this data needs (one per equal
-    pair and lane, at the int8 tensor-core peak). Returns (ms, bound_by,
-    dense_ms), ``dense_ms`` being the TPU formulation's dense products."""
+    """Least time on an H100 for these inputs: ident and matches read once,
+    r and t written once, at the memory rate. The kernel's sort and
+    segmented scan do O(N log N + N W) simple operations for every key
+    pattern, far below any compute peak, so the bytes bound it. Returns
+    (ms, "bytes", dense_ms), ``dense_ms`` being the TPU formulation's two
+    dense [N,N]x[N,W] products at the int8 tensor-core peak."""
     n, w = matches.shape
-    nbytes = n * 4 + n * w * matches.element_size() + 2 * n * w * 4
-    keys = ident[ident >= 0]
-    _, counts = torch.unique(keys, return_counts=True)
-    eq_pairs = int((counts.double() ** 2).sum())
-    lower_pairs = int((counts.double() * (counts.double() - 1) / 2).sum())
-    ops = 2 * (eq_pairs + lower_pairs) * w
-    t_bytes = nbytes / HBM_BYTES_PER_S
-    t_ops = ops / INT8_TC_OPS_PER_S
+    nbytes = n * ident.element_size() + n * w * matches.element_size() \
+        + 2 * n * w * 4
     dense_ms = 4 * n * n * w / INT8_TC_OPS_PER_S * 1e3
-    if t_bytes >= t_ops:
-        return t_bytes * 1e3, "bytes", dense_ms
-    return t_ops * 1e3, "operations", dense_ms
+    return nbytes / HBM_BYTES_PER_S * 1e3, "bytes", dense_ms
 
 
 # ---------------------------------------------------------------------------
@@ -332,6 +353,35 @@ def q7_pipeline(chunks, device):
     return HashJoinExecutor(probe, build, [0], [0], condition=cond,
                             key_capacity=1 << 16, bucket_width=128,
                             out_capacity=CHUNK, device=device)
+
+
+def run_q7_capturing(chunks, device):
+    """Drive the q7 executor over ``chunks`` with every kernel-B1 input
+    kept: (output multiset, seconds after the warm-up barrier, B1 launches
+    in the run, [(ident, matches), ...] in call order). The launch count is
+    reset just before the run and read just after."""
+    from risingwave_tpu_torch.ops import join_state
+    rt_mod = importlib.import_module("risingwave_tpu_torch.ops.rank_totals")
+    captured = []
+
+    def capturing(ident, matches):
+        captured.append((ident.clone(), matches.clone()))
+        return rt_mod.rank_totals(ident, matches)
+
+    join_state.rank_totals = capturing
+    try:
+        q7 = q7_pipeline(chunks, device)
+        rt_mod.rank_totals.launches = 0
+        got, secs = asyncio.run(drive(q7, 2))
+        launches = rt_mod.rank_totals.launches
+    finally:
+        join_state.rank_totals = rt_mod.rank_totals
+    return got, secs, launches, captured
+
+
+def keyed_rows(captured) -> list[int]:
+    """Rows with ident >= 0 in each captured B1 input."""
+    return [int((ident >= 0).sum()) for ident, _ in captured]
 
 
 def q7_expected(chunks) -> collections.Counter:
@@ -605,7 +655,7 @@ def main() -> int:
               file=sys.stderr)
         return 2
     from risingwave_tpu_torch import kernels
-    from risingwave_tpu_torch.ops import interval_join, join_state
+    from risingwave_tpu_torch.ops import interval_join
     rt_mod = importlib.import_module("risingwave_tpu_torch.ops.rank_totals")
     im_fn = interval_join.interval_match
     device = "cuda"
@@ -626,18 +676,7 @@ def main() -> int:
     # -- phase 3: q7 core; capture the kernel's busiest real input
     n_chunks = EPOCHS * CHUNKS_PER_EPOCH
     chunks = bid_chunks(n_chunks, device)
-    captured = []
-
-    def capturing(ident, matches):
-        captured.append((ident.clone(), matches.clone()))
-        return rt_mod.rank_totals(ident, matches)
-
-    join_state.rank_totals = capturing
-    q7 = q7_pipeline(chunks, device)
-    rt_mod.rank_totals.launches = 0
-    got, secs = asyncio.run(drive(q7, 2))
-    q7_launches = rt_mod.rank_totals.launches
-    join_state.rank_totals = rt_mod.rank_totals
+    got, secs, q7_launches, captured = run_q7_capturing(chunks, device)
     want = q7_expected(chunks)
     if got != want:
         raise AssertionError(f"q7 output differs from numpy q7: "
@@ -719,6 +758,15 @@ def main() -> int:
     ms, plain_ms, call_ms, plain_call_ms, timing = kernel_times(
         rt_mod.rank_totals, rt_mod.rank_totals_plain, (ident, matches))
     bound_ms, bound_by, dense_ms = rank_totals_bound(ident, matches)
+    # B1 over every input of the q7 run, one call each: its device time on
+    # the path, and the bound summed the same way
+    path_ms, _ = time_cuda(
+        lambda: [rt_mod.rank_totals(*im) for im in captured], iters=10)
+    path_bound_ms = sum(rank_totals_bound(*im)[0] for im in captured)
+    keyed = keyed_rows(captured)
+    print(f"rank_totals q7 inputs: calls={len(captured)} "
+          f"path_ms={path_ms} path_bound_ms={path_bound_ms} "
+          f"keyed_rows={keyed}")
     match_err += mask_errors(im_fn(*match_input),
                              interval_join.interval_match_plain(*match_input))
     if match_err:
@@ -741,7 +789,8 @@ def main() -> int:
         "timing": timing,
         "bound_ms": bound_ms, "bound_us": bound_ms * 1e3,
         "bound_by": bound_by, "dense_formulation_bound_ms": dense_ms,
-        "library_ms": None}, {
+        "path_calls": len(captured), "path_ms": path_ms,
+        "path_bound_ms": path_bound_ms, "library_ms": None}, {
         "name": "interval_match", "route": "cuda",
         "source": "risingwave_tpu_torch/csrc/interval_match.cu",
         "replaces": "risingwave_tpu/ops/interval_join.py:412",

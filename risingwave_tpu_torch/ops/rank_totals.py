@@ -7,12 +7,14 @@ kernel ``csrc/rank_totals.cu``. Per probe row i and bucket lane w:
     r[i, w] = #{ j < i : ident[j] == ident[i] >= 0, matches[j, w] }
     t[i, w] = #{ j     : ident[j] == ident[i] >= 0, matches[j, w] }
 
-The kernel walks the equality matrix sparsely, one warp per row with a ballot
-over 32 candidate rows per step, and counts in int32; its source note gives
-its bound on an H100 (bytes: about 1.4 us at N=4096, W=128) and how the
-design meets it. ``rank_totals`` launches the kernel for CUDA tensors and
-runs ``rank_totals_plain`` (the counterpart of ``rank_totals_jnp``) for CPU
-tensors; neither falls back to the other.
+The kernel computes it as a stable sort of the rows by key and a segmented
+prefix sum down each lane, in int32, in two launches on the current stream
+with no host sync; its source note gives the design and its bound on an H100
+(bytes: about 1.4 us at N=4096, W=128, for every key pattern). It needs a
+fixed workspace, one per device and stream, kept here and grown only when a
+larger chunk arrives. ``rank_totals`` launches the kernel for CUDA tensors
+and runs ``rank_totals_plain`` (the counterpart of ``rank_totals_jnp``) for
+CPU tensors; neither falls back to the other.
 """
 
 from __future__ import annotations
@@ -54,14 +56,30 @@ def _check(ident: torch.Tensor, matches: torch.Tensor) -> None:
         raise ValueError("N and W must fit in int32")
 
 
-def _launcher():
+def _library():
     lib = kernels.load("rank_totals")
-    fn = lib.rank_totals_launch
-    if fn.argtypes is None:  # pointers must not pass as 32-bit ints
-        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 2 \
-            + [ctypes.c_void_p]
-        fn.restype = ctypes.c_int
-    return fn
+    if lib.rank_totals_launch.argtypes is None:  # no 32-bit pointers
+        lib.rank_totals_launch.argtypes = [ctypes.c_void_p] * 4 \
+            + [ctypes.c_int] * 2 + [ctypes.c_void_p] * 2
+        lib.rank_totals_launch.restype = ctypes.c_int
+        lib.rank_totals_workspace_bytes.argtypes = [ctypes.c_int] * 2
+        lib.rank_totals_workspace_bytes.restype = ctypes.c_size_t
+    return lib
+
+
+#: (device index, stream) -> zero-initialised uint8 workspace
+_workspaces: dict[tuple[int, int], torch.Tensor] = {}
+
+
+def _workspace(lib, dev: torch.device, stream: int, n: int, w: int):
+    """The kernel's workspace for this device and stream, grown (zeroed)
+    when (n, w) needs more; the kernel leaves it reusable."""
+    nbytes = lib.rank_totals_workspace_bytes(n, w)
+    ws = _workspaces.get((dev.index, stream))
+    if ws is None or ws.numel() < nbytes:
+        ws = torch.zeros(nbytes, dtype=torch.uint8, device=dev)
+        _workspaces[(dev.index, stream)] = ws
+    return ws
 
 
 def rank_totals(ident: torch.Tensor, matches: torch.Tensor):
@@ -76,10 +94,13 @@ def rank_totals(ident: torch.Tensor, matches: torch.Tensor):
     n, w = matches.shape
     r = torch.empty((n, w), dtype=torch.int32, device=dev)
     t = torch.empty((n, w), dtype=torch.int32, device=dev)
+    lib = _library()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        err = _launcher()(ident.data_ptr(), matches.data_ptr(), r.data_ptr(),
-                          t.data_ptr(), n, w, stream)
+        ws = _workspace(lib, dev, stream, n, w)
+        err = lib.rank_totals_launch(ident.data_ptr(), matches.data_ptr(),
+                                     r.data_ptr(), t.data_ptr(), n, w,
+                                     ws.data_ptr(), stream)
     if err != 0:
         raise RuntimeError(f"rank_totals kernel launch failed: cudaError {err}")
     rank_totals.launches += 1

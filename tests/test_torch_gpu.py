@@ -31,8 +31,16 @@ def cuda():
 @pytest.mark.parametrize("n,w,pattern", [
     (4096, 128, "clustered"), (4000, 128, "clustered"), (4096, 128, "none"),
     (4096, 128, "one_hot_key"), (4096, 16, "clustered"), (33, 300, "random"),
-    (1, 1, "random")])
+    (1, 1, "random"), (4096, 128, "interleaved"), (4000, 128, "one_hot_key"),
+    (4096, 129, "clustered"), (4096, 128, "wide"), (5000, 7, "clustered"),
+    (32768, 128, "clustered"), (4096, 128, "probe_256"),
+    (4096, 129, "few_257")])
 def test_rank_totals_kernel_equals_plain(cuda, n, w, pattern):
+    """Exact on the card for grouped chunks (no sort pass), chunks sorted
+    in one pass (interleaved, random) or two (wide: about 1,000 keys), W
+    not a multiple of 4, N beyond one block's shared-memory sort, and
+    chunks whose rows mostly have ident < 0 (a probe chunk whose first
+    rows find one key; a few rows at random over 8 keys)."""
     rng = np.random.default_rng(n + w)
     if pattern == "clustered":
         ident = (np.arange(n) // 50).astype(np.int32)
@@ -41,6 +49,17 @@ def test_rank_totals_kernel_equals_plain(cuda, n, w, pattern):
         ident = np.full(n, -1, np.int32)
     elif pattern == "one_hot_key":
         ident = np.zeros(n, np.int32)
+    elif pattern == "interleaved":
+        ident = (np.arange(n) % 64).astype(np.int32)
+    elif pattern == "wide":
+        ident = rng.integers(-1, 1000, n).astype(np.int32)
+    elif pattern.startswith("probe_"):   # the first k rows find one key
+        ident = np.full(n, -1, np.int32)
+        ident[:int(pattern[6:])] = 3
+    elif pattern.startswith("few_"):     # k rows at random over 8 keys
+        k = int(pattern[4:])
+        ident = np.full(n, -1, np.int32)
+        ident[rng.choice(n, k, replace=False)] = rng.integers(0, 8, k)
     else:
         ident = rng.integers(-1, 5, n).astype(np.int32)
     matches = torch.as_tensor(rng.random((n, w)) < 0.3, device=cuda)
