@@ -7,8 +7,9 @@ Phases (any failure exits non-zero and prints no result line):
   1. card and build — the card's name and power limit, then ``nvcc`` builds
      every kernel under ``risingwave_tpu_torch/csrc/`` (all in parallel);
   2. each kernel against its plain PyTorch version on the card, exactly
-     (integer counts, boolean masks), and both timed, at the inputs listed in
-     ``RANK_CASES`` and ``MATCH_CASES``;
+     (integer counts, boolean masks, hash-table slots), and both timed, at
+     the inputs listed in ``RANK_CASES``, ``MATCH_CASES`` and
+     ``HASH_CASES`` (kernel B3's find-or-insert on both of its paths);
   3. the NEXmark q7 core through the executor entry points (Project →
      HashAgg(max) → HashJoin(price = max)) at the benchmark's sizes, with
      the launch counts reset just before and read just after; the final
@@ -21,14 +22,22 @@ Phases (any failure exits non-zero and prints no result line):
      (its body must not sync the host); both emission surfaces drained each
      epoch, flags clear, net output equal to numpy q7 over the same bids;
   6. the fused q5 epoch at full width with the executor's barrier path,
-     checked against a numpy group-by count;
-  7. profiled runs (q7 and q5 executors, one fused q7 and one fused q5
+     checked against a numpy group-by count, and one epoch under the sync
+     check;
+  7. the fused q8 epoch (bidder session windows, 0.5 s gap) at the
+     benchmark's shape: closed sessions equal to a numpy sessionization of
+     the same bids, flags clear, one epoch under the sync check;
+  8. the fused TPC-H q3 epoch at the benchmark's shape: after every epoch
+     the top 10 rebuilt from the emitted deletes and inserts equals numpy q3
+     over every event so far, flags clear; a second run takes one epoch
+     under the sync check;
+  9. profiled runs (q7 and q5 executors, one fused q7, q5, q8 and q3
      epoch): the device's busy share and top kernels; then one JSON line of
-     every kernel: launches on its path's run, exact agreement, its time and
-     its plain version's time on the inputs that run gave it, and its bound
-     on an H100 (for B1 also its time and bound summed over every input of
-     the q7 run, with each input's count of keyed rows);
-  8. the last line: ``{"ok": true, "device": {...}}``.
+     every kernel: launches on its paths' runs, exact agreement, its time
+     and its plain version's time on the inputs its path gave it, and its
+     bound on an H100 (for B1 also its time and bound summed over every
+     input of the q7 run, with each input's count of keyed rows);
+ 10. the last line: ``{"ok": true, "device": {...}}``.
 
 It imports nothing of JAX and nothing of the JAX package.
 """
@@ -37,6 +46,7 @@ from __future__ import annotations
 
 import asyncio
 import collections
+import contextlib
 import importlib
 import json
 import subprocess
@@ -60,6 +70,15 @@ Q5_TABLE_CAPACITY = 1 << 21
 FUSED_TIMED_EPOCHS = 3       # after one warm-up epoch
 Q7_FUSED_SEED = 23           # bench.py measure_q7_fused
 Q5_FUSED_SEED = 17           # bench.py measure_q5_fused
+Q8_FUSED_SEED = 31           # bench.py measure_q8_fused
+Q3_FUSED_SEED = 37           # bench.py measure_q3_fused
+Q8_GAP_US = 500_000          # bench.py Q8_GAP_US
+Q8_TABLE_CAP = 1 << 18       # bench.py Q8_TABLE_CAP
+Q8_CLOSED_CAP = 1 << 17      # bench.py Q8_CLOSED_CAP
+Q3_ORDERS_CAP = 1 << 17      # bench.py Q3_ORDERS_CAP
+Q3_AGG_CAP = 1 << 17         # bench.py Q3_AGG_CAP
+# q8 and q3: one warm-up epoch and two timed, the bench's 256 + 512 chunks
+Q8_Q3_TIMED_EPOCHS = 2
 # (N, W, ident pattern) — each compared exactly with the plain version;
 # N = 32768 is above what kernel B1 sorts in one block's shared memory;
 # probe_256 and few_257 are chunks whose rows mostly have ident < 0
@@ -75,6 +94,15 @@ MATCH_CASES = [(Q7_BUCKETS, Q7_LANES, "random"), (1000, 128, "random"),
                (777, 100, "random"), (Q7_BUCKETS, Q7_LANES, "all_occupied"),
                (Q7_BUCKETS, Q7_LANES, "none_occupied"),
                (4096, 128, "high_words")]
+# kernel B3 (the hash probe) against its plain version, slot for slot: each
+# find-or-insert case on both of the kernel's paths (one block, cooperative
+# grid), each find case once; see ``hash_case``
+HASH_CASES = [("q5", "insert"), ("load_0.7", "insert"), ("one_key", "insert"),
+              ("distinct_new", "insert"), ("null_10pct", "insert"),
+              ("all_null", "insert"), ("int32_bool", "insert"),
+              ("float_zero_nan", "insert"), ("overflow", "insert"),
+              ("n_65536", "insert"), ("find_hits_misses", "find"),
+              ("find_full_table", "find")]
 # H100 SXM published peaks (NVIDIA data sheet)
 HBM_BYTES_PER_S = 3.35e12
 INT8_TC_OPS_PER_S = 1979e12
@@ -203,6 +231,259 @@ def interval_match_bound(nb: int, w: int):
     per bucket read once, del and ins (1 B each) per cell written once; two
     compares per cell are far below any compute limit."""
     return (11 * nb * w + 18 * nb) / HBM_BYTES_PER_S * 1e3, "bytes"
+
+
+def _key_cols(arrays, device):
+    from risingwave_tpu_torch.common import Column
+    return [Column(torch.as_tensor(d, device=device),
+                   torch.as_tensor(m, device=device)) for d, m in arrays]
+
+
+def hash_case(name: str, device, seed: int = 0):
+    """(table, key columns, valid) of a ``HASH_CASES`` entry. Tables that
+    start non-empty are filled through the plain find-or-insert, except the
+    full table of ``find_full_table``, whose keys are laid out directly."""
+    from risingwave_tpu_torch.common import BOOL, FLOAT64, INT32, INT64, \
+        TIMESTAMP
+    from risingwave_tpu_torch.ops.hash_table import (
+        ht_lookup_or_insert_plain, ht_new,
+    )
+    rng = np.random.default_rng(seed)
+    n = CHUNK
+    ones = np.ones(n, bool)
+
+    def table_with(types, cap, arrays):
+        table = ht_new(types, cap, device)
+        if arrays:
+            cols = _key_cols(arrays, device)
+            valid = torch.ones(len(arrays[0][0]), dtype=torch.bool,
+                               device=device)
+            ht_lookup_or_insert_plain(table, cols, valid)
+        return table
+
+    if name == "q5":
+        # (window_start, auction) pairs of a q5 table in steady state: 90%
+        # of a chunk's rows find their group, the rest insert ~100 new ones
+        win = 1_600_000_000_000_000 + rng.integers(0, 40, 150_000) \
+            * Q5_WINDOW_US
+        auc = rng.integers(1_000, 60_000, 150_000)
+        pool = np.unique(np.stack([win, auc], 1), axis=0)
+        table = table_with((TIMESTAMP, INT64), Q5_TABLE_CAPACITY,
+                           [(pool[:, 0], np.ones(len(pool), bool)),
+                            (pool[:, 1], np.ones(len(pool), bool))])
+        new = np.stack([win[:100], 100_000 + np.arange(100)], 1)
+        pick = rng.random(n) < 0.9
+        rows = np.where(pick[:, None], pool[rng.integers(0, len(pool), n)],
+                        new[rng.integers(0, 100, n)])
+        arrays = [(rows[:, 0], ones), (rows[:, 1], ones)]
+        valid = ones
+    elif name == "load_0.7":
+        cap = 1 << 14
+        keys = rng.choice(1 << 40, int(0.7 * cap), replace=False)
+        table = table_with((INT64,), cap, [(keys, np.ones(len(keys), bool))])
+        new = rng.choice(1 << 40, 1500, replace=False) + (1 << 41)
+        arrays = [(np.where(rng.random(n) < 0.5, rng.choice(keys, n),
+                            rng.choice(new, n)), ones)]
+        valid = ones
+    elif name == "one_key":
+        table = table_with((INT64,), 1 << 12, None)
+        arrays = [(np.full(n, 7), ones)]
+        valid = ones
+    elif name == "distinct_new":
+        table = table_with((INT64,), 1 << 16, None)
+        arrays = [(rng.permutation(n) * 1_000_003 - 5 * n, ones)]
+        valid = ones
+    elif name in ("null_10pct", "all_null"):
+        table = table_with((INT64, INT64), 1 << 13, None)
+        share = 0.9 if name == "null_10pct" else 0.0
+        arrays = [(rng.integers(0, 500, n), rng.random(n) < share),
+                  (rng.integers(0, 7, n), rng.random(n) < share)]
+        valid = rng.random(n) < 0.9
+    elif name == "int32_bool":
+        table = table_with((INT32, BOOL), 1 << 12, None)
+        arrays = [(rng.integers(-50, 50, n).astype(np.int32),
+                   rng.random(n) < 0.9), (rng.random(n) < 0.5, ones)]
+        valid = rng.random(n) < 0.85
+    elif name == "float_zero_nan":
+        table = table_with((FLOAT64,), 1 << 13, None)
+        vals = np.round(rng.standard_normal(n) * 100, 1)
+        vals[rng.random(n) < 0.2] = 0.0
+        vals[rng.random(n) < 0.2] = -0.0
+        vals[rng.choice(n, 20, replace=False)] = np.nan
+        arrays = [(vals, rng.random(n) < 0.95)]
+        valid = ones
+    elif name == "overflow":
+        # 56 free slots for 512 new keys: the rest cannot settle in 128
+        keys = rng.choice(1 << 40, 200, replace=False)
+        table = table_with((INT64,), 256, [(keys, np.ones(200, bool))])
+        arrays = [((1 << 41) + rng.choice(1 << 30, 512, replace=False),
+                   np.ones(512, bool))]
+        valid = np.ones(512, bool)
+    elif name == "n_65536":
+        m = 1 << 16
+        pairs = rng.integers(0, 30_000, (m, 2)) * np.array([1, 3])
+        table = table_with((INT64, INT64), 1 << 17,
+                           [(pairs[:10_000, 0], np.ones(10_000, bool)),
+                            (pairs[:10_000, 1], np.ones(10_000, bool))])
+        arrays = [(pairs[:, 0], np.ones(m, bool)),
+                  (pairs[:, 1], rng.random(m) < 0.95)]
+        valid = rng.random(m) < 0.95
+    elif name == "find_hits_misses":
+        keys = rng.choice(1 << 40, (8_000, 2))
+        table = table_with((INT64, INT64), 1 << 14,
+                           [(keys[:, 0], np.ones(8_000, bool)),
+                            (keys[:, 1], np.ones(8_000, bool))])
+        probe = np.where((rng.random(n) < 0.5)[:, None],
+                         keys[rng.integers(0, 8_000, n)],
+                         rng.choice(1 << 40, (n, 2)) + (1 << 41))
+        arrays = [(probe[:, 0], ones), (probe[:, 1], rng.random(n) < 0.95)]
+        valid = rng.random(n) < 0.9
+    elif name == "find_full_table":
+        # every slot taken, keys placed directly: a miss probes 128 slots
+        cap = 256
+        table = table_with((INT64,), cap, None)
+        keys = rng.choice(10_000, cap, replace=False)
+        table.key_data[0].copy_(torch.as_tensor(keys, device=device))
+        table.key_mask[0].fill_(True)
+        table.occupied.fill_(True)
+        arrays = [(rng.integers(0, 10_000, n), ones)]
+        valid = ones
+    else:
+        raise ValueError(name)
+    cols = _key_cols(arrays, device)
+    return table, cols, torch.as_tensor(np.asarray(valid), device=device)
+
+
+def table_errors(a, b) -> int:
+    """Slots where two hash tables differ (float keys compared by bits)."""
+    def bits(t):
+        return t.view(torch.int64) if t.dtype == torch.float64 else t
+    err = int((a.occupied != b.occupied).sum())
+    for x, y in zip(a.key_data + a.key_mask, b.key_data + b.key_mask):
+        err += int((bits(x) != bits(y)).sum())
+    return err
+
+
+def hash_probe_bound(table, cols, valid, slots, found_or_new, op: str):
+    """Least time on an H100 for these inputs, from the plain version's
+    result: per row its key words, masks and ``valid`` read and ``slots``
+    (8 B) and the flag (1 B) written; per probe taken one ``occupied`` byte
+    and each column's key word and mask read (a settled row took its final
+    offset + 1 probes, an unsettled one 128, a find up to its match or its
+    empty slot); per inserted key its words, masks and ``occupied``
+    written. The hash and the compares are far below any compute limit, so
+    the bytes bound it."""
+    from risingwave_tpu_torch.common import hash_columns
+    from risingwave_tpu_torch.ops.hash_table import (
+        MAX_PROBE_ROUNDS, _keys_equal_at,
+    )
+    cap = table.capacity
+    key_bytes = sum(c.data.element_size() + 1 for c in cols)
+    n = valid.shape[0]
+    start = hash_columns(cols) & (cap - 1)
+    if op == "find":
+        # a find stops at a match or at an empty slot: count its probes
+        done = ~valid
+        probes = 0
+        for off in range(MAX_PROBE_ROUNDS):
+            cand = (start + off) & (cap - 1)
+            occ = table.occupied[cand]
+            probes += int((~done).sum())
+            done = done | ~occ | (occ & _keys_equal_at(
+                table, cand, [c.data for c in cols], [c.mask for c in cols]))
+    else:
+        settled = valid & (slots < cap)
+        offsets = torch.where(settled, ((slots - start) & (cap - 1)) + 1,
+                              torch.full_like(slots, MAX_PROBE_ROUNDS))
+        probes = int(offsets[valid].sum())
+    inserted = int(found_or_new.sum()) if op == "insert" else 0
+    nbytes = n * (key_bytes + 1 + 8 + 1) + probes * (1 + key_bytes) \
+        + inserted * (key_bytes + 1)
+    return nbytes / HBM_BYTES_PER_S * 1e3, "bytes"
+
+
+def compare_hash_probe(table, cols, valid, op: str, path: str = "auto"):
+    """Kernel B3 against its plain version on one input, each on its own
+    copy of ``table``: ``(differences, plain result)``, the differences
+    counted over slots, is_new or found, overflow and, for find-or-insert,
+    the final table."""
+    from risingwave_tpu_torch.ops.hash_table import (
+        ht_lookup, ht_lookup_or_insert, ht_lookup_or_insert_plain,
+        ht_lookup_plain,
+    )
+    if op == "insert":
+        want_t, got_t = table.clone(), table.clone()
+        _, s0, f0, o0 = ht_lookup_or_insert_plain(want_t, cols, valid)
+        _, s1, f1, o1 = ht_lookup_or_insert(got_t, cols, valid, path=path)
+        err = int(bool(o1) != bool(o0)) + table_errors(got_t, want_t)
+    else:
+        s0, f0 = ht_lookup_plain(table, cols, valid)
+        s1, f1 = ht_lookup(table, cols, valid)
+        o0 = torch.zeros((), dtype=torch.bool)
+        err = 0
+    err += int((s1 != s0).sum()) + int((f1 != f0).sum())
+    return err, (s0, f0, o0)
+
+
+def check_hash_probe(device, time_it: bool = True) -> dict:
+    """Kernel B3 against its plain version on every ``HASH_CASES`` input,
+    slot for slot, each find-or-insert case on both kernel paths. Returns
+    the q5 input's timing (insert) and find_hits_misses' (find) for the
+    kernels line."""
+    from risingwave_tpu_torch.ops.hash_table import (
+        ht_lookup, ht_lookup_or_insert, ht_lookup_or_insert_plain,
+        ht_lookup_plain,
+    )
+    timings = {}
+    for name, op in HASH_CASES:
+        table, cols, valid = hash_case(name, device)
+        for path in ("block", "grid") if op == "insert" else ("auto",):
+            err, (s0, f0, o0) = compare_hash_probe(table, cols, valid, op,
+                                                   path)
+            if err:
+                raise AssertionError(f"hash_probe {op} differs from plain "
+                                     f"on {name}, {path} path: {err} "
+                                     f"differences")
+        if op == "insert":
+            def kernel():
+                ht_lookup_or_insert(table.clone(), cols, valid)
+
+            def plain():
+                ht_lookup_or_insert_plain(table.clone(), cols, valid)
+        else:
+            def kernel():
+                ht_lookup(table, cols, valid)
+
+            def plain():
+                ht_lookup_plain(table, cols, valid)
+        bound_ms, bound_by = hash_probe_bound(table, cols, valid, s0, f0, op)
+        line = (f"hash_probe {op} {name}: N={valid.shape[0]} "
+                f"cap={table.capacity} differences=0 "
+                f"overflow={bool(o0)} hits_or_new={int(f0.sum())} "
+                f"bound_ms={bound_ms}")
+        if time_it:
+            ms, plain_ms, call_ms = probe_times(kernel, plain)
+            line += (f" kernel_ms={ms} call_ms={call_ms} "
+                     f"plain_ms={plain_ms}")
+            if name in ("q5", "find_hits_misses"):
+                timings[op] = {"ms": ms, "plain_ms": plain_ms,
+                               "call_ms": call_ms, "bound_ms": bound_ms,
+                               "bound_by": bound_by, "case": name}
+        print(line)
+    return timings
+
+
+def probe_times(kernel, plain):
+    """(kernel ms, plain ms, kernel call ms) per call: the device time of
+    every kernel each call ran (from the profiler), less the table copies
+    (``Memcpy``) that give each call a fresh table, and the CUDA-event time
+    of the kernel's call."""
+    def device_ms(fn):
+        per = {}
+        time_cuda(fn, iters=20, by_kernel=per)
+        return sum(v for k, v in per.items() if not k.startswith("Memcpy"))
+    _, call_ms = time_cuda(kernel, iters=20)
+    return device_ms(kernel), device_ms(plain), call_ms
 
 
 def time_cuda(fn, iters: int = 50, warmup: int = 5, by_kernel=None):
@@ -482,12 +763,27 @@ def fused_keys(seed: int, batch_no: int, device):
     return threefry.fold_in(threefry.prng_key(seed, device), batch_no)
 
 
-def epoch_bids(gen, start: int, key, k: int):
-    """(auction, price, date_time) on the host: the bids an epoch body
-    draws from ``start`` and ``key``."""
+def epoch_bids(gen, start: int, key, k: int, cols=(0, 2, 5)):
+    """Columns ``cols`` (by default auction, price, date_time) on the host
+    of the bids an epoch body draws from ``start`` and ``key``."""
     from risingwave_tpu_torch.ops.fused_epoch import epoch_chunks
     ch = epoch_chunks(gen.chunk_fn(), gen.cfg.chunk_capacity, start, key, k)
-    return [ch.columns[j].data.reshape(-1).cpu().numpy() for j in (0, 2, 5)]
+    return [ch.columns[j].data.reshape(-1).cpu().numpy() for j in cols]
+
+
+@contextlib.contextmanager
+def no_host_sync(on: bool = True):
+    """With ``on``, synchronizing CUDA calls inside the block are errors
+    (``torch.cuda.set_sync_debug_mode("error")``)."""
+    if not on:
+        yield
+        return
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        yield
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
 
 
 class FusedQ7:
@@ -532,15 +828,9 @@ class FusedQ7:
         )
         key = fused_keys(Q7_FUSED_SEED, self.batch_no, self.device)
         self.bids.append((self.start, key))
-        if sync_check:
-            torch.cuda.synchronize()
-            torch.cuda.set_sync_debug_mode("error")
-        try:
+        with no_host_sync(sync_check):
             (self.state, probe_out, del_m, ins_m, old,
              packed) = self.epoch_fn(self.state, self.start, key, self.k)
-        finally:
-            if sync_check:
-                torch.cuda.set_sync_debug_mode("default")
         self.start += self.k * self.chunk
         self.batch_no += 1
         n_flush, ovf, clobber, sawdel, n_probe = packed.tolist()
@@ -588,10 +878,13 @@ class FusedQ5:
         self.batch_no = 0
         self.bids = []
 
-    def epoch(self, drain: Drain) -> None:
+    def epoch(self, drain: Drain, sync_check: bool = False) -> None:
+        """One epoch and the executor's barrier path; with ``sync_check``
+        the epoch body runs with synchronizing CUDA calls made errors."""
         key = fused_keys(Q5_FUSED_SEED, self.batch_no, self.device)
         self.bids.append((self.start, key))
-        self.state = self.epoch_fn(self.state, self.start, key, self.k)
+        with no_host_sync(sync_check):
+            self.state = self.epoch_fn(self.state, self.start, key, self.k)
         self.start += self.k * self.chunk
         self.batch_no += 1
         rank = self.core.flush_rank(self.state)
@@ -608,6 +901,190 @@ class FusedQ5:
                 for start, key in self.bids]
         auction, _, ts = (np.concatenate(c) for c in zip(*cols))
         return q5_expected_cols(auction, ts)
+
+
+def sorted_rows(rows: np.ndarray) -> np.ndarray:
+    """Rows of a 2-D integer array in lexicographic order."""
+    return rows[np.lexsort(rows.T[::-1])] if len(rows) else rows
+
+
+class FusedQ8:
+    """The fused q8 epoch (bench.py measure_q8_fused) on one card: bidder
+    session-gap windows, the watermark close at each barrier and the
+    closed-session drain."""
+
+    def __init__(self, device, chunk: int, k: int, gap_us: int = Q8_GAP_US,
+                 capacity: int = Q8_TABLE_CAP,
+                 closed_capacity: int = Q8_CLOSED_CAP):
+        from risingwave_tpu_torch.common import INT64, TIMESTAMP, Field, Schema
+        from risingwave_tpu_torch.connector import (
+            DeviceBidGenerator, NexmarkConfig,
+        )
+        from risingwave_tpu_torch.expr import col
+        from risingwave_tpu_torch.ops.fused_epoch import EPOCH_BUILDERS
+        from risingwave_tpu_torch.ops.session_window import SessionWindowCore
+        exprs = [col(1, INT64), col(5, TIMESTAMP)]      # bidder, date_time
+        schema = Schema((Field("bidder", INT64), Field("ts", TIMESTAMP)))
+        self.core = SessionWindowCore(schema, 0, 1, gap_us, capacity,
+                                      closed_capacity, device)
+        self.cfg = NexmarkConfig(chunk_capacity=chunk)
+        self.gen = DeviceBidGenerator(self.cfg, device=device)
+        self.epoch_fn = EPOCH_BUILDERS["source_session"](
+            self.gen.chunk_fn(), exprs, self.core, chunk)
+        self.us_per_event = max(1_000_000 // max(
+            self.cfg.events_per_second, 1), 1)
+        self.device, self.chunk, self.k, self.gap = device, chunk, k, gap_us
+        self.state = self.core.init_state()
+        self.start = 0
+        self.batch_no = 0
+        self.bids = []
+        self.watermark = None
+
+    def epoch(self, drain: Drain, sync_check: bool = False) -> None:
+        key = fused_keys(Q8_FUSED_SEED, self.batch_no, self.device)
+        self.bids.append((self.start, key))
+        end = self.start + self.k * self.chunk
+        wm = self.cfg.start_time_us + end * self.us_per_event - self.gap
+        with no_host_sync(sync_check):
+            self.state, snap, packed = self.epoch_fn(
+                self.state, self.start, key, self.k, wm)
+        self.start = end
+        self.batch_no += 1
+        self.watermark = wm
+        n_closed, ovf, covf, sawdel, ooo = packed.tolist()
+        if ovf or covf or sawdel or ooo:
+            raise AssertionError(
+                f"fused q8 flags: table_overflow={ovf} closed_overflow="
+                f"{covf} saw_delete={sawdel} out_of_order={ooo}")
+        for lo in range(0, n_closed, self.chunk):
+            drain.add(self.core.gather_closed(snap, n_closed, lo,
+                                              self.chunk))
+
+    def expected(self) -> np.ndarray:
+        """The closed sessions in numpy, sorted: the bids of every epoch so
+        far sorted by (bidder, ts) and split where the gap exceeds the
+        session gap; a session is closed if its bidder has a later one or
+        the last watermark has passed its end by the gap."""
+        cols = [epoch_bids(self.gen, start, key, self.k, (1, 5))
+                for start, key in self.bids]
+        bidder, ts = (np.concatenate(c) for c in zip(*cols))
+        return sorted_rows(sessions(bidder, ts, self.gap, self.watermark))
+
+    def check(self, drain: Drain) -> int:
+        """Fails unless the drained sessions equal ``expected``; returns
+        their number."""
+        got = np.concatenate([r for r, _ in drain.parts]) if drain.parts \
+            else np.zeros((0, 4), np.int64)
+        if drain.parts and not all((s == 1).all() for _, s in drain.parts):
+            raise AssertionError("fused q8 emitted a non-insert row")
+        want = self.expected()
+        if got.shape != want.shape or not np.array_equal(sorted_rows(got),
+                                                         want):
+            raise AssertionError(f"fused q8 sessions differ from numpy: "
+                                 f"{len(got)} emitted, {len(want)} expected")
+        return len(want)
+
+
+def sessions(key: np.ndarray, ts: np.ndarray, gap: int,
+             watermark: int) -> np.ndarray:
+    """Closed sessions (key, start, end, n_events) of events ``(key, ts)``
+    in numpy."""
+    order = np.lexsort((ts, key))
+    k, t = key[order], ts[order]
+    n = len(k)
+    first = np.ones(n, bool)
+    first[1:] = (k[1:] != k[:-1]) | (t[1:] - t[:-1] > gap)
+    starts = np.flatnonzero(first)
+    ends = np.append(starts[1:], n) - 1
+    later = np.append(k[starts[1:]] == k[starts[:-1]], False)
+    closed = later | (t[ends] + gap <= watermark)
+    return np.stack([k[starts], t[starts], t[ends], ends - starts + 1],
+                    1)[closed]
+
+
+class FusedQ3:
+    """The fused TPC-H q3 epoch (bench.py measure_q3_fused) on one card:
+    orders build, lineitem probe, revenue agg and the top-10 churn, applied
+    to a host copy of the MV after each epoch."""
+
+    def __init__(self, device, chunk: int, k: int,
+                 orders_capacity: int = Q3_ORDERS_CAP,
+                 agg_capacity: int = Q3_AGG_CAP):
+        from risingwave_tpu_torch.connector import (
+            Q3_CUTOFF_DAYS, DeviceQ3Generator, TpchQ3Config,
+        )
+        from risingwave_tpu_torch.ops.fused_epoch import EPOCH_BUILDERS
+        from risingwave_tpu_torch.ops.stream_q3 import Q3Core
+        self.gen = DeviceQ3Generator(TpchQ3Config(chunk_capacity=chunk),
+                                     device=device)
+        self.core = Q3Core(Q3_CUTOFF_DAYS, orders_capacity=orders_capacity,
+                           agg_capacity=agg_capacity, device=device)
+        self.epoch_fn = EPOCH_BUILDERS["source_q3"](self.gen.chunk_fn(),
+                                                    self.core, chunk)
+        self.device, self.chunk, self.k = device, chunk, k
+        self.state = self.core.init_state()
+        self.start = 0
+        self.batch_no = 0
+        self.mv = collections.Counter()   # the top-10 as emitted
+        self.history = []                 # (events so far, the MV's rows)
+
+    def epoch(self, drain: Drain, sync_check: bool = False) -> None:
+        key = fused_keys(Q3_FUSED_SEED, self.batch_no, self.device)
+        with no_host_sync(sync_check):
+            self.state, out, packed = self.epoch_fn(self.state, self.start,
+                                                    key, self.k)
+        self.start += self.k * self.chunk
+        self.batch_no += 1
+        _, o_ovf, a_ovf, sawdel = packed.tolist()
+        if o_ovf or a_ovf or sawdel:
+            raise AssertionError(f"fused q3 flags: orders_overflow={o_ovf} "
+                                 f"agg_overflow={a_ovf} saw_delete={sawdel}")
+        drain.add(out)
+        rows, signs = drain.parts[-1]
+        for row, sign in zip(rows.tolist(), signs.tolist()):
+            self.mv[tuple(row)] += sign
+            if self.mv[tuple(row)] < 0:
+                raise AssertionError("fused q3 deletes a row it never "
+                                     "emitted")
+        self.mv = +self.mv
+        self.history.append((self.start, sorted(self.mv.elements())))
+
+    def expected(self, n_events: int) -> list[tuple]:
+        """q3 in numpy over the first ``n_events`` events: the top 10 of
+        (orderkey, revenue, o_orderdate, o_shippriority) by revenue
+        descending, then orderkey."""
+        from risingwave_tpu_torch.connector import Q3_CUTOFF_DAYS
+        n_chunks = n_events // self.chunk
+        starts = torch.arange(n_chunks, dtype=torch.int64,
+                              device=self.device) * self.chunk
+        ch = self.gen.chunk_fn()(starts)
+        kind, okey, odate, prio, mkt, price, disc, ship = (
+            c.data.reshape(-1).cpu().numpy() for c in ch.columns)
+        cut = Q3_CUTOFF_DAYS
+        qual = (kind == 0) & (odate < cut) & (mkt == 0)
+        o_date = np.full(okey.max() + 1, -1, np.int64)
+        o_prio = np.zeros(okey.max() + 1, np.int64)
+        o_date[okey[qual]] = odate[qual]
+        o_prio[okey[qual]] = prio[qual]
+        li = (kind == 1) & (ship > cut) & (o_date[okey] >= 0)
+        rev = np.zeros(okey.max() + 1, np.int64)
+        np.add.at(rev, okey[li], price[li] * (10000 - disc[li]) // 10000)
+        keys = np.unique(okey[li])
+        top = keys[np.lexsort((keys, -rev[keys]))][:self.core.limit]
+        return sorted((int(k), int(rev[k]), int(o_date[k]), int(o_prio[k]))
+                      for k in top)
+
+    def check(self) -> int:
+        """Fails unless, after every epoch so far, the top-10 as emitted
+        equalled ``expected`` over the events up to then; returns the
+        epochs checked."""
+        for b, (n_events, got) in enumerate(self.history):
+            want = self.expected(n_events)
+            if got != want or len(got) != self.core.limit:
+                raise AssertionError(
+                    f"fused q3 top-{self.core.limit} differs from numpy "
+                    f"after epoch {b}: {got} != {want}")
+        return len(self.history)
 
 
 def run_fused(runner, timed_epochs: int):
@@ -649,6 +1126,16 @@ def kernel_times(kernel, plain, args):
     return ms, plain_ms, call_ms, plain_call_ms, "profiler"
 
 
+def b3_launches(reset: bool = False) -> int:
+    """Kernel B3's launches (find-or-insert and find) since the last reset;
+    with ``reset``, set both counts to 0 after reading them."""
+    from risingwave_tpu_torch.ops import hash_table as ht
+    n = ht.ht_lookup_or_insert.launches + ht.ht_lookup.launches
+    if reset:
+        ht.ht_lookup_or_insert.launches = ht.ht_lookup.launches = 0
+    return n
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script measures the card",
@@ -672,11 +1159,15 @@ def main() -> int:
     # -- phase 2: kernels against their plain versions
     max_err = check_rank_totals(device)
     match_err = check_interval_match(device)
+    b3_timing = check_hash_probe(device)
+    b3_paths = {}       # B3 launches of each path's run
 
     # -- phase 3: q7 core; capture the kernel's busiest real input
     n_chunks = EPOCHS * CHUNKS_PER_EPOCH
     chunks = bid_chunks(n_chunks, device)
+    b3_launches(reset=True)
     got, secs, q7_launches, captured = run_q7_capturing(chunks, device)
+    b3_paths["q7 executor"] = b3_launches()
     want = q7_expected(chunks)
     if got != want:
         raise AssertionError(f"q7 output differs from numpy q7: "
@@ -684,16 +1175,20 @@ def main() -> int:
                              f"{sum((want - got).values())} missing rows")
     timed_rows = (n_chunks - CHUNKS_PER_EPOCH) * CHUNK
     print(f"q7: rows_out={sum(got.values())} source_rows/s="
-          f"{timed_rows / secs:.1f} rank_totals.launches={q7_launches}")
+          f"{timed_rows / secs:.1f} rank_totals.launches={q7_launches} "
+          f"hash_probe.launches={b3_paths['q7 executor']}")
     if q7_launches <= 0:
         raise AssertionError("the q7 run never launched rank_totals")
 
     # -- phase 4: q5 core
     q5 = q5_pipeline(chunks, device)
+    b3_launches(reset=True)
     got5, secs5 = asyncio.run(drive(q5, 2))
+    b3_paths["q5 executor"] = b3_launches()
     if got5 != q5_expected(chunks):
         raise AssertionError("q5 output differs from numpy group-by count")
-    print(f"q5: groups={len(got5)} source_rows/s={timed_rows / secs5:.1f}")
+    print(f"q5: groups={len(got5)} source_rows/s={timed_rows / secs5:.1f} "
+          f"hash_probe.launches={b3_paths['q5 executor']}")
 
     # -- phase 5: fused q7 at full width; then one more epoch, untimed,
     # whose body runs with synchronizing calls made errors and whose
@@ -729,25 +1224,63 @@ def main() -> int:
         raise AssertionError("the fused q7 run never launched "
                              "interval_match")
 
-    # -- phase 6: fused q5 at full width
+    # -- phase 6: fused q5 at full width; then one epoch whose body runs
+    # with synchronizing calls made errors
     fq5 = FusedQ5(device, Q5_TABLE_CAPACITY, CHUNK, FUSED_CHUNKS_PER_EPOCH)
+    b3_launches(reset=True)
     drain5, rate5 = run_fused(fq5, FUSED_TIMED_EPOCHS)
+    b3_paths["fused q5"] = b3_launches()
+    fq5.epoch(drain5, sync_check=True)
     got5f = drain5.multiset()
     if got5f != fq5.expected():
         raise AssertionError("fused q5 output differs from numpy group-by "
                              "count")
     print(f"q5_fused: epochs={fq5.batch_no} groups={len(got5f)} "
-          f"source_rows/s={rate5:.1f}")
+          f"source_rows/s={rate5:.1f} hash_probe.launches="
+          f"{b3_paths['fused q5']} sync_free_epoch=ok")
 
-    # -- phase 7: where the time goes (device busy share)
+    # -- phase 7: fused q8 at the bench's shape; then one epoch whose body
+    # runs with synchronizing calls made errors
+    fq8 = FusedQ8(device, CHUNK, FUSED_CHUNKS_PER_EPOCH)
+    b3_launches(reset=True)
+    drain8, rate8 = run_fused(fq8, Q8_Q3_TIMED_EPOCHS)
+    b3_paths["fused q8"] = b3_launches()
+    fq8.epoch(drain8, sync_check=True)
+    n_sessions = fq8.check(drain8)
+    print(f"q8_fused: epochs={fq8.batch_no} sessions={n_sessions} "
+          f"source_rows/s={rate8:.1f} hash_probe.launches="
+          f"{b3_paths['fused q8']} flags=clear sync_free_epoch=ok")
+
+    # -- phase 8: fused q3 at the bench's shape, the top-10 checked after
+    # every epoch; a second run (fresh state, so the orders table stays at
+    # the bench's load) takes the epoch under the sync check and the trace
+    fq3 = FusedQ3(device, CHUNK, FUSED_CHUNKS_PER_EPOCH)
+    b3_launches(reset=True)
+    _, rate3 = run_fused(fq3, Q8_Q3_TIMED_EPOCHS)
+    b3_paths["fused q3"] = b3_launches()
+    fq3.check()
+    fq3b = FusedQ3(device, CHUNK, FUSED_CHUNKS_PER_EPOCH)
+    fq3b.epoch(Drain(), sync_check=True)
+    print(f"q3_fused: epochs={fq3.batch_no} top={fq3.history[-1][1]} "
+          f"source_rows/s={rate3:.1f} hash_probe.launches="
+          f"{b3_paths['fused q3']} flags=clear sync_free_epoch=ok")
+    for path, n in b3_paths.items():
+        if n <= 0:
+            raise AssertionError(f"the {path} run never launched hash_probe")
+
+    # -- phase 9: where the time goes (device busy share)
     head = chunks[:2 * CHUNKS_PER_EPOCH]
     print("q7_trace: " + json.dumps(trace(q7_pipeline, head, device)))
     print("q5_trace: " + json.dumps(trace(q5_pipeline, head, device)))
     print("q7_fused_trace: " + json.dumps(trace_fused(fq7)))
     print("q5_fused_trace: " + json.dumps(trace_fused(fq5)))
+    print("q8_fused_trace: " + json.dumps(trace_fused(fq8)))
+    print("q3_fused_trace: " + json.dumps(trace_fused(fq3b)))
+    fq3b.check()
 
     # kernel times on the inputs their path gave them: B1 on the q7 run's
-    # input with the most keyed rows, B2 on the fused q7 run's last flush
+    # input with the most keyed rows, B2 on the fused q7 run's last flush,
+    # B3 on the q5 input of HASH_CASES
     ident, matches = max(captured, key=lambda im: int((im[0] >= 0).sum()))
     n, w = matches.shape
     for kern, plain in zip(rt_mod.rank_totals(ident, matches),
@@ -776,6 +1309,10 @@ def main() -> int:
     m_ms, m_plain_ms, m_call_ms, m_plain_call_ms, m_timing = kernel_times(
         im_fn, interval_join.interval_match_plain, match_input)
     m_bound_ms, m_bound_by = interval_match_bound(nb, lanes)
+    ins, find = b3_timing["insert"], b3_timing["find"]
+    epochs = {"fused q5": FUSED_TIMED_EPOCHS + 1,
+              "fused q8": Q8_Q3_TIMED_EPOCHS + 1,
+              "fused q3": Q8_Q3_TIMED_EPOCHS + 1}
     print(card)
     print(json.dumps({"kernels": [{
         "name": "rank_totals", "route": "cuda",
@@ -803,7 +1340,26 @@ def main() -> int:
         "call_ms": m_call_ms, "plain_call_ms": m_plain_call_ms,
         "timing": m_timing,
         "bound_ms": m_bound_ms, "bound_us": m_bound_ms * 1e3,
-        "bound_by": m_bound_by, "library_ms": None}]}))
+        "bound_by": m_bound_by, "library_ms": None}, {
+        "name": "hash_probe", "route": "cuda",
+        "source": "risingwave_tpu_torch/csrc/hash_probe.cu",
+        "replaces": "risingwave_tpu/ops/hash_table.py:77",
+        "tpu_counterpart": "risingwave_tpu/ops/hash_table.py::"
+            "ht_lookup_or_insert (:77) and ::ht_lookup (:154), a "
+            "lax.while_loop with no Pallas kernel",
+        "path": "q7 and q5 executors, fused q5, q8 and q3",
+        "launches": sum(b3_paths.values()), "path_launches": b3_paths,
+        "launches_per_epoch": {p: b3_paths[p] / e
+                               for p, e in epochs.items()},
+        "equal": True, "max_abs_err": 0,
+        "shape": [CHUNK, Q5_TABLE_CAPACITY], "input": ins["case"],
+        "ms": ins["ms"], "kernel_ms": ins["ms"], "plain_ms": ins["plain_ms"],
+        "call_ms": ins["call_ms"], "timing": "profiler",
+        "bound_ms": ins["bound_ms"], "bound_us": ins["bound_ms"] * 1e3,
+        "bound_by": ins["bound_by"],
+        "find_input": find["case"], "find_ms": find["ms"],
+        "find_plain_ms": find["plain_ms"],
+        "find_bound_ms": find["bound_ms"], "library_ms": None}]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

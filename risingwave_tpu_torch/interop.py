@@ -1,7 +1,8 @@
 """Carry state across from the JAX package.
 
 Turns the reference's ``StreamChunk``, ``DeviceHashTable``, ``AggState``,
-``JoinState``, ``IntervalJoinState`` and PRNG keys into this package's
+``JoinState``, ``IntervalJoinState``, ``SessionWindowState``, ``Q3State``
+and PRNG keys into this package's
 tensors on a given device. The reference
 objects arrive as nested numpy arrays under the JAX field names: either the
 flax dataclasses with numpy leaves (``jax.tree_util.tree_map(np.asarray,
@@ -23,6 +24,7 @@ from .ops.grouped_agg import AggState
 from .ops.hash_table import DeviceHashTable
 from .ops.interval_join import IntervalJoinState, state_from_host
 from .ops.join_state import JoinSideState, JoinState
+from .ops import session_window, stream_q3
 
 
 def _get(obj: Any, name: str) -> Any:
@@ -78,6 +80,19 @@ def join_state_from_jax(state: Any, device=DEFAULT_DEVICE) -> JoinState:
 def interval_join_state_from_jax(state: Any,
                                  device=DEFAULT_DEVICE) -> IntervalJoinState:
     return state_from_host(state, device)
+
+
+def session_state_from_jax(state: Any, device=DEFAULT_DEVICE
+                           ) -> session_window.SessionWindowState:
+    """The reference's ``SessionWindowState`` with numpy leaves, or its
+    ``export_host`` payload."""
+    return session_window.state_from_host(state, device)
+
+
+def q3_state_from_jax(state: Any, device=DEFAULT_DEVICE) -> stream_q3.Q3State:
+    """The reference's ``Q3State`` with numpy leaves, or its
+    ``export_host`` payload (the agg's checkpoint and LRU marks dropped)."""
+    return stream_q3.state_from_host(state, device)
 
 
 def prng_key_from_jax(key_data: Any, device=DEFAULT_DEVICE) -> torch.Tensor:

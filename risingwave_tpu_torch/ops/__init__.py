@@ -8,3 +8,7 @@ from .join_state import (  # noqa: F401
 from .interval_join import (  # noqa: F401
     IntervalJoinCore, IntervalJoinState, interval_match, interval_match_plain,
 )
+from .session_window import (  # noqa: F401
+    SessionWindowCore, SessionWindowState,
+)
+from .stream_q3 import Q3Core, Q3State  # noqa: F401

@@ -1,28 +1,35 @@
 """Device-resident open-addressing hash table (key → slot index).
 
 Counterpart of ``risingwave_tpu/ops/hash_table.py``. A whole chunk of keys is
-probed at once in rounds of gather / compare / claim. The reference runs the
-rounds in a ``lax.while_loop``; here they are a Python loop that reads
-``any(~done)`` from the device each round, capped at ``MAX_PROBE_ROUNDS``.
-(A hand-written probe kernel that keeps the loop on the device is ROADMAP
-item B3.)
+probed at once in rounds of gather / compare / claim, capped at
+``MAX_PROBE_ROUNDS`` rounds in all; the reference runs the rounds in a
+``lax.while_loop`` on the device. For tensors on a CUDA device,
+``ht_lookup_or_insert`` and ``ht_lookup`` launch kernel B3
+(``csrc/hash_probe.cu``), which hashes the keys (bit for bit
+``common/hashing.hash_columns``) and keeps the rounds on the card, reading
+nothing back to the host. For tensors on the CPU they run the plain
+versions, ``ht_lookup_or_insert_plain`` and ``ht_lookup_plain``: the same
+rounds as a Python loop that reads ``any(~done)`` from the device each
+round. Neither falls back to the other.
 
 The slot layout is equal slot for slot to the reference's, because flush
-output order follows slot order: an empty slot wanted by several rows goes to
-the row with the smallest index, found through a stable sort. Group keys
-compare GROUP-BY style (NULL == NULL). Slots are never freed.
+output order follows slot order: an empty slot wanted by several rows in one
+round goes to the row with the smallest index (the plain version finds it
+through a stable sort, the kernel through an atomicMin claim word per slot).
+Group keys compare GROUP-BY style (NULL == NULL). Slots are never freed.
 
 The table is updated in place.
 """
 
 from __future__ import annotations
 
+import ctypes
 import dataclasses
 from typing import Sequence
 
 import torch
 
-from .. import DEFAULT_DEVICE
+from .. import DEFAULT_DEVICE, kernels
 from ..common.chunk import Column
 from ..common.hashing import hash_columns
 
@@ -65,7 +72,9 @@ def mark(flags: torch.Tensor, idx: torch.Tensor) -> None:
     so duplicate indices cannot race."""
     hit = torch.zeros(flags.shape[0] + 1, dtype=torch.bool,
                       device=flags.device)
-    hit[idx] = True
+    # index_fill_ takes the scalar as a kernel argument; ``hit[idx] = True``
+    # would copy it to the card first, a host sync
+    hit.index_fill_(0, idx, True)
     flags |= hit[:-1]
 
 
@@ -77,6 +86,16 @@ def set_where(target: torch.Tensor, valid: torch.Tensor, idx: torch.Tensor,
     if isinstance(values, torch.Tensor):
         values = values[rows]
     target[idx[rows]] = values
+
+
+def set_rows(target: torch.Tensor, pos: torch.Tensor, keep: torch.Tensor,
+             values: torch.Tensor) -> None:
+    """``target[pos[keep]] = values[keep]`` in place for an int64
+    ``target``, without a host sync. Kept positions must be distinct and in
+    range; every other row adds 0 to a cell of its own."""
+    own = torch.arange(pos.shape[0], device=pos.device) % target.shape[0]
+    idx = torch.where(keep, pos, own)
+    target.index_add_(0, idx, torch.where(keep, values - target[idx], 0))
 
 
 def _keys_equal_at(table: DeviceHashTable, cand: torch.Tensor,
@@ -91,18 +110,12 @@ def _keys_equal_at(table: DeviceHashTable, cand: torch.Tensor,
     return eq
 
 
-def ht_lookup_or_insert(table: DeviceHashTable, key_cols: Sequence[Column],
-                        valid: torch.Tensor):
-    """Find-or-insert a batch of keys, updating ``table`` in place.
-
-    Returns ``(table, slots, is_new, overflow)``:
-      * ``slots`` int64[N]: slot per row (== capacity for invalid/overflow
-        rows),
-      * ``is_new`` bool[N]: True for the single winning row that inserted a
-        previously-absent key,
-      * ``overflow`` bool scalar tensor: some valid row failed to find/claim
-        a slot.
-    """
+def ht_lookup_or_insert_plain(table: DeviceHashTable,
+                              key_cols: Sequence[Column],
+                              valid: torch.Tensor):
+    """Plain PyTorch find-or-insert, with ``ht_lookup_or_insert``'s
+    contract: a host loop of rounds that syncs the host in each round
+    (``any(~done)`` and ``set_where``'s ``nonzero``)."""
     cap = table.capacity
     datas = [c.data for c in key_cols]
     masks = [c.mask for c in key_cols]
@@ -145,10 +158,9 @@ def ht_lookup_or_insert(table: DeviceHashTable, key_cols: Sequence[Column],
     return table, slots, is_new & valid, overflow
 
 
-def ht_lookup(table: DeviceHashTable, key_cols: Sequence[Column],
-              valid: torch.Tensor):
-    """Read-only probe. Returns ``(slots, found)``; slots == capacity if
-    absent."""
+def ht_lookup_plain(table: DeviceHashTable, key_cols: Sequence[Column],
+                    valid: torch.Tensor):
+    """Plain PyTorch read-only probe (see ``ht_lookup``)."""
     cap = table.capacity
     datas = [c.data for c in key_cols]
     masks = [c.mask for c in key_cols]
@@ -172,6 +184,168 @@ def ht_lookup(table: DeviceHashTable, key_cols: Sequence[Column],
     slots = torch.where(found, (h + offset) & (cap - 1),
                         torch.full_like(h, cap))
     return slots, found
+
+
+# ---------------------------------------------------------------------------
+# kernel B3
+# ---------------------------------------------------------------------------
+
+#: key dtypes the kernel takes, by the code the launcher reads
+_DTYPE_CODES = {torch.bool: 0, torch.int32: 1, torch.int64: 2,
+                torch.float64: 3}
+_MAX_KEY_COLS = 4
+_PATHS = {"auto": 0, "block": 1, "grid": 2}
+_CLAIM_FREE = 0x7FFFFFFF
+
+
+def _library():
+    lib = kernels.load("hash_probe")
+    if lib.hash_probe_find_launch.argtypes is None:  # no 32-bit pointers
+        ptr, arr = ctypes.c_void_p, ctypes.POINTER(ctypes.c_void_p)
+        head = [ptr, ctypes.c_longlong, ctypes.c_int, arr, arr,
+                ctypes.POINTER(ctypes.c_int), arr, arr, ptr,
+                ctypes.c_longlong]
+        lib.hash_probe_insert_launch.argtypes = head + [ptr] * 4 + [
+            ctypes.c_int, ptr]
+        lib.hash_probe_insert_launch.restype = ctypes.c_int
+        lib.hash_probe_find_launch.argtypes = head + [ptr] * 3
+        lib.hash_probe_find_launch.restype = ctypes.c_int
+    return lib
+
+
+#: (device index, stream) -> int32 words: four round counters, then the
+#: claim words, all free between calls
+_workspaces: dict[tuple[int, int], torch.Tensor] = {}
+
+
+def _workspace(dev: torch.device, stream: int, cap: int) -> torch.Tensor:
+    """The claim workspace for this device and stream, made at the first
+    call for a capacity this large; the kernel leaves every word free."""
+    ws = _workspaces.get((dev.index, stream))
+    if ws is None or ws.numel() < 4 + cap:
+        ws = torch.full((4 + cap,), _CLAIM_FREE, dtype=torch.int32,
+                        device=dev)
+        _workspaces[(dev.index, stream)] = ws
+    return ws
+
+
+def _launch_args(table: DeviceHashTable, key_cols: Sequence[Column],
+                 valid: torch.Tensor):
+    """The launchers' common arguments, after checking what the kernel
+    takes; the tensors are returned too, to keep them alive."""
+    if not 1 <= len(key_cols) <= _MAX_KEY_COLS:
+        raise ValueError(f"the probe kernel takes 1 to {_MAX_KEY_COLS} key "
+                         f"columns, got {len(key_cols)}")
+    if len(key_cols) != len(table.key_data):
+        raise ValueError("key columns and table columns differ in number")
+    if valid.dtype != torch.bool or valid.dim() != 1:
+        raise TypeError("valid must be bool[N]")
+    n = valid.shape[0]
+    dev = valid.device
+    datas, masks, codes = [], [], []
+    for c, td, tm in zip(key_cols, table.key_data, table.key_mask):
+        if c.data.dtype != td.dtype:
+            raise TypeError(f"key column {c.data.dtype} against table "
+                            f"column {td.dtype}")
+        if c.data.dtype not in _DTYPE_CODES:
+            raise TypeError(f"the probe kernel takes no {c.data.dtype} key")
+        for t in (c.data, c.mask, td, tm):
+            if t.device != dev:
+                raise ValueError("key columns, table and valid are on "
+                                 "different devices")
+        if c.data.shape != (n,) or c.mask.shape != (n,) \
+                or c.mask.dtype != torch.bool:
+            raise ValueError("each key column must be [N] with a bool mask")
+        if not (td.is_contiguous() and tm.is_contiguous()):
+            raise ValueError("table columns must be contiguous")
+        datas.append(c.data.contiguous())
+        masks.append(c.mask.contiguous())
+        codes.append(_DTYPE_CODES[c.data.dtype])
+    if not table.occupied.is_contiguous():
+        raise ValueError("table.occupied must be contiguous")
+    valid = valid.contiguous()
+    ncols = len(key_cols)
+    arr = ctypes.c_void_p * ncols
+    args = (valid.data_ptr(), n, ncols,
+            arr(*(d.data_ptr() for d in datas)),
+            arr(*(m.data_ptr() for m in masks)),
+            (ctypes.c_int * ncols)(*codes),
+            arr(*(t.data_ptr() for t in table.key_data)),
+            arr(*(t.data_ptr() for t in table.key_mask)),
+            table.occupied.data_ptr(), table.capacity)
+    return args, (valid, datas, masks)
+
+
+def ht_lookup_or_insert(table: DeviceHashTable, key_cols: Sequence[Column],
+                        valid: torch.Tensor, path: str = "auto"):
+    """Find-or-insert a batch of keys, updating ``table`` in place.
+
+    Returns ``(table, slots, is_new, overflow)``:
+      * ``slots`` int64[N]: slot per row (== capacity for invalid/overflow
+        rows),
+      * ``is_new`` bool[N]: True for the single winning row that inserted a
+        previously-absent key,
+      * ``overflow`` bool scalar tensor: some valid row failed to find/claim
+        a slot.
+
+    Kernel B3 on a CUDA tensor, no host sync; ``path`` picks its one-block
+    path ("block"), its cooperative multi-block path ("grid") or, by N, one
+    of them ("auto"), all with the same result. The plain version on a CPU
+    tensor."""
+    dev = valid.device
+    if dev.type == "cpu":
+        return ht_lookup_or_insert_plain(table, key_cols, valid)
+    if dev.type != "cuda":
+        raise ValueError(f"ht_lookup_or_insert: unsupported device {dev}")
+    args, keep = _launch_args(table, key_cols, valid)
+    n = valid.shape[0]
+    slots = torch.empty(n, dtype=torch.int64, device=dev)
+    is_new = torch.empty(n, dtype=torch.bool, device=dev)
+    overflow = torch.empty((), dtype=torch.bool, device=dev)
+    lib = _library()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        ws = _workspace(dev, stream, table.capacity)
+        err = lib.hash_probe_insert_launch(
+            *args, slots.data_ptr(), is_new.data_ptr(), overflow.data_ptr(),
+            ws.data_ptr(), _PATHS[path], stream)
+    del keep
+    if err != 0:
+        raise RuntimeError(f"hash_probe insert launch failed: cudaError "
+                           f"{err}")
+    ht_lookup_or_insert.launches += 1
+    return table, slots, is_new, overflow
+
+
+def ht_lookup(table: DeviceHashTable, key_cols: Sequence[Column],
+              valid: torch.Tensor):
+    """Read-only probe. Returns ``(slots, found)``; slots == capacity if
+    absent. Kernel B3's find on a CUDA tensor, the plain version on a CPU
+    tensor."""
+    dev = valid.device
+    if dev.type == "cpu":
+        return ht_lookup_plain(table, key_cols, valid)
+    if dev.type != "cuda":
+        raise ValueError(f"ht_lookup: unsupported device {dev}")
+    args, keep = _launch_args(table, key_cols, valid)
+    n = valid.shape[0]
+    slots = torch.empty(n, dtype=torch.int64, device=dev)
+    found = torch.empty(n, dtype=torch.bool, device=dev)
+    lib = _library()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = lib.hash_probe_find_launch(*args, slots.data_ptr(),
+                                         found.data_ptr(), stream)
+    del keep
+    if err != 0:
+        raise RuntimeError(f"hash_probe find launch failed: cudaError {err}")
+    ht_lookup.launches += 1
+    return slots, found
+
+
+#: kernel launches since the last reset (launches only, not plain runs)
+ht_lookup_or_insert.launches = 0
+ht_lookup.launches = 0
 
 
 def _identity(dtype: torch.dtype, op: str):

@@ -225,24 +225,61 @@ def test_tumble_start_floors_negative_timestamps():
 # hash table and scatter reductions
 # ---------------------------------------------------------------------------
 
-def _key_batches(rng, n_batches, n, n_keys):
+def _key_batches(rng, kind, n_batches, n, n_keys):
+    """(key type names, [(key arrays, valid), ...]) of one kind of batch."""
     out = []
     for _ in range(n_batches):
-        k1 = rng.integers(0, n_keys, n)
-        k2 = rng.integers(0, 3, n).astype(np.float64)
-        m1 = rng.random(n) < 0.9
-        m2 = rng.random(n) < 0.9
         valid = rng.random(n) < 0.85
-        out.append(([(k1, m1), (k2, m2)], valid))
-    return out
+        m1 = rng.random(n) < 0.9
+        if kind == "mixed":
+            types = ("INT64", "FLOAT64")
+            arrays = [(rng.integers(0, n_keys, n), m1),
+                      (rng.integers(0, 3, n).astype(np.float64),
+                       rng.random(n) < 0.9)]
+        elif kind == "float_nan_zero":
+            # NaN never equals itself; -0.0 and 0.0 are one key
+            types = ("FLOAT64",)
+            arrays = [(rng.choice([0.0, -0.0, np.nan, 1.5, -2.5, 3.0], n),
+                       m1)]
+        elif kind == "int32_bool":
+            types = ("INT32", "BOOL")
+            arrays = [(rng.integers(-n_keys, n_keys, n).astype(np.int32),
+                       m1), (rng.random(n) < 0.5, rng.random(n) < 0.9)]
+        elif kind == "all_null":
+            types = ("INT64", "INT64")
+            arrays = [(rng.integers(0, n_keys, n), np.zeros(n, bool)),
+                      (rng.integers(0, n_keys, n), np.zeros(n, bool))]
+        elif kind == "one_key":
+            types = ("INT64",)
+            arrays = [(np.full(n, 11), np.ones(n, bool))]
+            valid = np.ones(n, bool)
+        elif kind == "nan_chain":
+            # every row a NaN of one hash: one insert per two rounds, so
+            # the batch cannot settle within MAX_PROBE_ROUNDS
+            types = ("FLOAT64",)
+            arrays = [(np.full(n, np.nan), np.ones(n, bool))]
+            valid = np.ones(n, bool)
+        else:
+            raise ValueError(kind)
+        out.append((arrays, valid))
+    return types, out
 
 
-@pytest.mark.parametrize("cap,n_keys", [(64, 20), (16, 12), (8, 40)])
-def test_hash_table_slot_for_slot(cap, n_keys):
-    rng = np.random.default_rng(cap)
-    jt = JO.ht_new([J.INT64, J.FLOAT64], cap)
-    tt = TO.ht_new([T.INT64, T.FLOAT64], cap, device=CPU)
-    for arrays, valid in _key_batches(rng, 3, 32, n_keys):
+@pytest.mark.parametrize("cap,n_keys,kind,n", [
+    pytest.param(64, 20, "mixed", 32, id="64-20"),
+    pytest.param(16, 12, "mixed", 32, id="16-12"),
+    pytest.param(8, 40, "mixed", 32, id="8-40"),
+    pytest.param(64, 0, "float_nan_zero", 32, id="float_nan_zero"),
+    pytest.param(64, 20, "int32_bool", 32, id="int32_bool"),
+    pytest.param(16, 20, "all_null", 32, id="all_null"),
+    pytest.param(16, 0, "one_key", 32, id="one_key"),
+    pytest.param(256, 0, "nan_chain", 200, id="nan_chain_unsettled")])
+def test_hash_table_slot_for_slot(cap, n_keys, kind, n):
+    rng = np.random.default_rng(cap + n_keys + len(kind))
+    types, batches = _key_batches(rng, kind, 3, n, n_keys)
+    jt = JO.ht_new([getattr(J, t) for t in types], cap)
+    tt = TO.ht_new([getattr(T, t) for t in types], cap, device=CPU)
+    for arrays, valid in batches:
         jt, js, jn, jo = JO.ht_lookup_or_insert(jt, jcols(arrays),
                                                 jnp.asarray(valid))
         tt, ts, tn, to = TO.ht_lookup_or_insert(tt, tcols(arrays),
@@ -258,8 +295,12 @@ def test_hash_table_slot_for_slot(cap, n_keys):
                                   tt.occupied.numpy())
     for a, b in zip(jt.key_data + jt.key_mask, tt.key_data + tt.key_mask):
         np.testing.assert_array_equal(np.asarray(a), b.numpy())
-    if n_keys * 3 > cap:
+    if (kind == "mixed" and n_keys * 3 > cap) or kind == "nan_chain":
         assert bool(to), "the table was meant to overflow"
+    if kind == "nan_chain":     # unsettled with free slots left
+        assert not tt.occupied.all()
+    if kind in ("all_null", "one_key"):
+        assert int(tt.occupied.sum()) == 1
 
 
 @pytest.mark.parametrize("op", ["add", "min", "max"])

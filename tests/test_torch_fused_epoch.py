@@ -35,6 +35,7 @@ from risingwave_tpu_torch.interop import (
 )
 from risingwave_tpu_torch.ops.fused_epoch import (
     EPOCH_BUILDERS, fused_source_agg_epoch, fused_source_join_epoch,
+    fused_source_q3_epoch, fused_source_session_epoch,
 )
 from risingwave_tpu_torch.ops.grouped_agg import AggCore
 from risingwave_tpu_torch.ops.interval_join import (
@@ -193,8 +194,11 @@ def test_fused_agg_epoch_equals_reference_slot_for_slot():
     tep = EPOCH_BUILDERS["source_agg"](
         DeviceBidGenerator(NexmarkConfig(chunk_capacity=CAP),
                            device="cpu").chunk_fn(), exprs[1], tcore, CAP)
-    assert EPOCH_BUILDERS == {"source_agg": fused_source_agg_epoch,
-                              "source_join": fused_source_join_epoch}
+    assert EPOCH_BUILDERS == {
+        "source_agg": fused_source_agg_epoch,
+        "source_join": fused_source_join_epoch,
+        "source_session": fused_source_session_epoch,
+        "source_q3": fused_source_q3_epoch}
     js, ts = jcore.init_state(), tcore.init_state()
     for b in range(2):
         jk, tk = _keys(b)

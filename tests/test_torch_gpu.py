@@ -1,9 +1,11 @@
 """Tests of the PyTorch port that need a CUDA card: the hand-written kernels
-against their plain versions on the card, the q7 pipeline and the fused q7
-epoch on the card against the same runs on the CPU, and a non-integer
-float64 sum lane on the card against the CPU. They skip where no card is
-present; run them on the card with
-``python -m pytest tests/test_torch_gpu.py -m gpu``.
+against their plain versions on the card (kernel B3 on every
+``chip_smoke.HASH_CASES`` input, find-or-insert on both of its paths), the
+q7 pipeline and the fused q7, q8 and q3 epochs on the card against the same
+runs on the CPU, the fused q5, q7, q8 and q3 epoch bodies with synchronizing
+CUDA calls made errors, and a non-integer float64 sum lane on the card
+against the CPU. They skip where no card is present; run them on the card
+with ``python -m pytest tests/test_torch_gpu.py -m gpu``.
 """
 
 import asyncio
@@ -11,6 +13,8 @@ import asyncio
 import numpy as np
 import pytest
 import torch
+
+import chip_smoke as cs
 
 from risingwave_tpu_torch.ops import interval_join as ij
 from risingwave_tpu_torch.ops import rank_totals as rt_mod
@@ -192,3 +196,77 @@ def test_float64_sum_on_card_within_bound_of_cpu(cuda):
     assert int(live.sum()) == 5
     assert torch.allclose(sums_card[live], sums_cpu[live], rtol=1e-12,
                           atol=0)
+
+
+@pytest.mark.parametrize("name,op,path", [
+    (name, op, path) for name, op in cs.HASH_CASES
+    for path in (("block", "grid") if op == "insert" else ("auto",))])
+def test_hash_probe_kernel_equals_plain(cuda, name, op, path):
+    """B3 equals its plain version slot for slot (slots, is_new or found,
+    overflow and the final table) on each listed input; every find-or-insert
+    input on the one-block and on the cooperative grid path."""
+    from risingwave_tpu_torch.ops import hash_table as ht
+    table, cols, valid = cs.hash_case(name, cuda)
+    before = ht.ht_lookup_or_insert.launches + ht.ht_lookup.launches
+    err, _ = cs.compare_hash_probe(table, cols, valid, op, path)
+    torch.cuda.synchronize()
+    assert ht.ht_lookup_or_insert.launches + ht.ht_lookup.launches \
+        == before + 1
+    assert err == 0
+
+
+def _small_runner(kind, device):
+    if kind == "q5":
+        return cs.FusedQ5(device, 1 << 12, 512, 8)
+    if kind == "q7":
+        return cs.FusedQ7(device, n_buckets=1024, lanes=64, chunk=512, k=8)
+    if kind == "q8":
+        return cs.FusedQ8(device, 512, 8, gap_us=5_000, capacity=1 << 12,
+                          closed_capacity=1 << 13)
+    return cs.FusedQ3(device, 512, 8, orders_capacity=1 << 12,
+                      agg_capacity=1 << 12)
+
+
+@pytest.mark.parametrize("kind", ["q5", "q8", "q3"])
+def test_fused_epoch_bodies_make_no_host_sync(cuda, kind):
+    run = _small_runner(kind, "cuda")
+    drain, _ = cs.run_fused(run, 1)
+    run.epoch(drain, sync_check=True)
+    if kind == "q5":
+        assert drain.multiset() == run.expected()
+    elif kind == "q8":
+        assert run.check(drain) > 0
+    else:
+        assert run.check() == 3
+
+
+@pytest.mark.parametrize("kind", ["q8", "q3"])
+def test_small_fused_runs_on_card_equal_cpu(cuda, kind):
+    """Three epochs of the fused q8 or q3 run give the same rows, in the
+    same order, and the same final state on the card as on the CPU."""
+    def rows(device):
+        run = _small_runner(kind, device)
+        drain = cs.Drain()
+        for _ in range(3):
+            run.epoch(drain)
+        return [r.tolist() for r, _ in drain.parts], run
+
+    on_card, card_run = rows("cuda")
+    on_cpu, cpu_run = rows("cpu")
+    assert on_card == on_cpu and on_card
+    _assert_payload_equal(card_run.core.export_host(card_run.state),
+                          cpu_run.core.export_host(cpu_run.state))
+
+
+def _assert_payload_equal(a, b):
+    """Two ``export_host`` payloads hold equal arrays under equal names."""
+    if isinstance(a, dict):
+        assert a.keys() == b.keys()
+        for k in a:
+            _assert_payload_equal(a[k], b[k])
+    elif isinstance(a, list):
+        assert len(a) == len(b)
+        for x, y in zip(a, b):
+            _assert_payload_equal(x, y)
+    else:
+        np.testing.assert_array_equal(a, b)
