@@ -9,7 +9,9 @@ Phases (any failure exits non-zero and prints no result line):
   2. each kernel against its plain PyTorch version on the card, exactly
      (integer counts, boolean masks, hash-table slots), and both timed, at
      the inputs listed in ``RANK_CASES``, ``MATCH_CASES`` and
-     ``HASH_CASES`` (kernel B3's find-or-insert on both of its paths);
+     ``HASH_CASES`` (kernel B3's find-or-insert on both of its paths, the
+     float64 inputs also against the plain version on CPU copies; the
+     card's float64 → float32 cast of six NaN patterns beside the CPU's);
   3. the NEXmark q7 core through the executor entry points (Project →
      HashAgg(max) → HashJoin(price = max)) at the benchmark's sizes, with
      the launch counts reset just before and read just after; the final
@@ -95,14 +97,24 @@ MATCH_CASES = [(Q7_BUCKETS, Q7_LANES, "random"), (1000, 128, "random"),
                (Q7_BUCKETS, Q7_LANES, "none_occupied"),
                (4096, 128, "high_words")]
 # kernel B3 (the hash probe) against its plain version, slot for slot: each
-# find-or-insert case on both of the kernel's paths (one block, cooperative
+# find-or-insert case on both of the kernel's paths (phased, cooperative
 # grid), each find case once; see ``hash_case``
 HASH_CASES = [("q5", "insert"), ("load_0.7", "insert"), ("one_key", "insert"),
               ("distinct_new", "insert"), ("null_10pct", "insert"),
               ("all_null", "insert"), ("int32_bool", "insert"),
               ("float_zero_nan", "insert"), ("overflow", "insert"),
-              ("n_65536", "insert"), ("find_hits_misses", "find"),
-              ("find_full_table", "find")]
+              ("n_65536", "insert"), ("late_arrival", "insert"),
+              ("all_absent_loaded", "insert"), ("nan_payloads", "insert"),
+              ("find_hits_misses", "find"), ("find_full_table", "find")]
+B3_PATHS = ("phased", "grid")
+# B3's kernels, as the profiler names them
+B3_KERNELS = ("insert_phased_kernel", "find_window_kernel",
+              "insert_grid_kernel")
+# float64 NaN bit patterns and the float32 bits the CPU casts them to (sign,
+# quiet bit, the top 22 mantissa bits)
+NAN_PATTERNS = {0x7FF8000000000000: 0x7FC00000, 0xFFF8000000000000: 0xFFC00000,
+                0x7FF0000000000001: 0x7FC00000, 0x7FF80000DEADBEEF: 0x7FC00006,
+                0x7FF4000000000000: 0x7FE00000, 0x7FFFFFFFFFFFFFFF: 0x7FFFFFFF}
 # H100 SXM published peaks (NVIDIA data sheet)
 HBM_BYTES_PER_S = 3.35e12
 INT8_TC_OPS_PER_S = 1979e12
@@ -239,6 +251,20 @@ def _key_cols(arrays, device):
                    torch.as_tensor(m, device=device)) for d, m in arrays]
 
 
+def keys_by_home(cap: int, per: int, rng) -> np.ndarray:
+    """[cap, per] distinct int64 keys, ``per`` for each home slot of a
+    one-column table of ``cap`` slots (``hash_columns`` on the CPU)."""
+    from risingwave_tpu_torch.common import hash_columns
+    pool = rng.choice(1 << 40, cap * per * 12, replace=False)
+    home = (hash_columns(_key_cols([(pool, np.ones(len(pool), bool))],
+                                   "cpu")) & (cap - 1)).numpy()
+    order = np.argsort(home, kind="stable")
+    first = np.searchsorted(home[order], np.arange(cap))
+    if (np.bincount(home, minlength=cap) < per).any():
+        raise AssertionError("too few keys for some home slot")
+    return pool[order[first[:, None] + np.arange(per)]]
+
+
 def hash_case(name: str, device, seed: int = 0):
     """(table, key columns, valid) of a ``HASH_CASES`` entry. Tables that
     start non-empty are filled through the plain find-or-insert, except the
@@ -328,6 +354,52 @@ def hash_case(name: str, device, seed: int = 0):
         arrays = [(pairs[:, 0], np.ones(m, bool)),
                   (pairs[:, 1], rng.random(m) < 0.95)]
         valid = rng.random(m) < 0.95
+    elif name == "late_arrival":
+        # 1,024 runs of 2-5 occupied slots, each key at its home slot, with
+        # an empty slot e after each run. Rows 0-2047 hold new keys homed at
+        # a run's first or second slot: they pass the run and reach e in
+        # round 1-5. Rows 2048-3071 hold new keys homed at e itself, so in
+        # the reference they take e in round 0 from the smaller rows; the
+        # last 1,024 rows repeat earlier rows' keys.
+        cap = 1 << 14
+        runs = 1024
+        base = np.arange(runs) * (cap // runs)
+        length = rng.integers(2, 6, runs)
+        by_home = keys_by_home(cap, 6, rng)
+        pre = np.concatenate([by_home[(base + t) % cap, 0][t < length]
+                              for t in range(5)])
+        pre_slots = np.concatenate([(base + t)[t < length] for t in range(5)])
+        table = table_with((INT64,), cap, None)
+        table.key_data[0][torch.as_tensor(pre_slots, device=device)] = \
+            torch.as_tensor(pre, device=device)
+        for t in (table.key_mask[0], table.occupied):
+            t[torch.as_tensor(pre_slots, device=device)] = True
+        keys = np.concatenate([by_home[base, 1], by_home[base + 1, 1],
+                               by_home[base + length, 2]])
+        keys = np.concatenate([keys, keys[rng.integers(0, len(keys),
+                                                       n - len(keys))]])
+        arrays = [(keys, ones)]
+        valid = ones
+    elif name == "all_absent_loaded":
+        # every row a new distinct key, into a table at load 0.5
+        cap = 1 << 14
+        keys = rng.choice(1 << 40, cap // 2 + n, replace=False)
+        table = table_with((INT64,), cap, [(keys[n:], np.ones(cap // 2,
+                                                              bool))])
+        arrays = [(keys[:n], ones)]
+        valid = ones
+    elif name == "nan_payloads":
+        # the six NaN patterns of NAN_PATTERNS, four rows each, among
+        # ordinary keys half of which the table holds
+        vals = np.round(rng.standard_normal(2_000) * 100, 2)
+        table = table_with((FLOAT64,), 1 << 13,
+                           [(vals, np.ones(len(vals), bool))])
+        rows = np.where(rng.random(n) < 0.5, rng.choice(vals, n),
+                        np.round(rng.standard_normal(n) * 100, 2) + 0.001)
+        nans = np.array(list(NAN_PATTERNS) * 4, np.uint64).view(np.float64)
+        rows[rng.choice(n, len(nans), replace=False)] = nans
+        arrays = [(rows, ones)]
+        valid = ones
     elif name == "find_hits_misses":
         keys = rng.choice(1 << 40, (8_000, 2))
         table = table_with((INT64, INT64), 1 << 14,
@@ -357,72 +429,143 @@ def hash_case(name: str, device, seed: int = 0):
 def table_errors(a, b) -> int:
     """Slots where two hash tables differ (float keys compared by bits)."""
     def bits(t):
+        t = t.cpu()
         return t.view(torch.int64) if t.dtype == torch.float64 else t
-    err = int((a.occupied != b.occupied).sum())
+    err = int((a.occupied.cpu() != b.occupied.cpu()).sum())
     for x, y in zip(a.key_data + a.key_mask, b.key_data + b.key_mask):
         err += int((bits(x) != bits(y)).sum())
     return err
 
 
-def hash_probe_bound(table, cols, valid, slots, found_or_new, op: str):
-    """Least time on an H100 for these inputs, from the plain version's
-    result: per row its key words, masks and ``valid`` read and ``slots``
-    (8 B) and the flag (1 B) written; per probe taken one ``occupied`` byte
-    and each column's key word and mask read (a settled row took its final
-    offset + 1 probes, an unsettled one 128, a find up to its match or its
-    empty slot); per inserted key its words, masks and ``occupied``
-    written. The hash and the compares are far below any compute limit, so
-    the bytes bound it."""
+def probe_lengths(table, cols, valid, slots, op: str) -> torch.Tensor:
+    """Each row's probes in the reference's sequential order, from its home
+    slot: a settled row's final offset + 1, an unsettled row's
+    MAX_PROBE_ROUNDS, a find's up to its match or its empty slot, an invalid
+    row's 0."""
     from risingwave_tpu_torch.common import hash_columns
     from risingwave_tpu_torch.ops.hash_table import (
         MAX_PROBE_ROUNDS, _keys_equal_at,
     )
     cap = table.capacity
-    key_bytes = sum(c.data.element_size() + 1 for c in cols)
-    n = valid.shape[0]
     start = hash_columns(cols) & (cap - 1)
     if op == "find":
-        # a find stops at a match or at an empty slot: count its probes
         done = ~valid
-        probes = 0
+        lengths = torch.zeros_like(start)
         for off in range(MAX_PROBE_ROUNDS):
             cand = (start + off) & (cap - 1)
             occ = table.occupied[cand]
-            probes += int((~done).sum())
+            lengths += (~done).long()
             done = done | ~occ | (occ & _keys_equal_at(
                 table, cand, [c.data for c in cols], [c.mask for c in cols]))
-    else:
-        settled = valid & (slots < cap)
-        offsets = torch.where(settled, ((slots - start) & (cap - 1)) + 1,
-                              torch.full_like(slots, MAX_PROBE_ROUNDS))
-        probes = int(offsets[valid].sum())
+        return lengths
+    settled = valid & (slots < cap)
+    return torch.where(settled, ((slots - start) & (cap - 1)) + 1,
+                       torch.where(valid, MAX_PROBE_ROUNDS, 0))
+
+
+def hash_probe_bound(table, cols, valid, slots, found_or_new, op: str):
+    """Least time on an H100 for these inputs, from the plain version's
+    result: per row its key words, masks and ``valid`` read and ``slots``
+    (8 B) and the flag (1 B) written; per probe taken (``probe_lengths``)
+    one ``occupied`` byte and each column's key word and mask read; per
+    inserted key its words, masks and ``occupied`` written. The hash and the
+    compares are far below any compute limit, so the bytes bound it."""
+    key_bytes = sum(c.data.element_size() + 1 for c in cols)
+    n = valid.shape[0]
+    probes = int(probe_lengths(table, cols, valid, slots, op).sum())
     inserted = int(found_or_new.sum()) if op == "insert" else 0
     nbytes = n * (key_bytes + 1 + 8 + 1) + probes * (1 + key_bytes) \
         + inserted * (key_bytes + 1)
     return nbytes / HBM_BYTES_PER_S * 1e3, "bytes"
 
 
+def hash_probe_floor(table, cols, valid, slots, found_or_new, op: str):
+    """A sector-granular floor beside ``hash_probe_bound``, in ms at the
+    H100's memory rate: the same per-row bytes, but a row's probes (a run of
+    ``probe_lengths`` consecutive slots from its home, wrapping at the
+    capacity) move every 32-byte sector the run touches in ``occupied`` and
+    in each key column's words and masks, and each inserted key moves one
+    whole sector per array it writes and one for its claim word. It leaves
+    out that the path waits on at least two dependent memory round trips."""
+    from risingwave_tpu_torch.common import hash_columns
+    cap = table.capacity
+    n = valid.shape[0]
+    start = hash_columns(cols) & (cap - 1)
+    length = torch.clamp(probe_lengths(table, cols, valid, slots, op),
+                         max=cap)
+    first = torch.minimum(length, cap - start)
+
+    def sectors(a, k, e):   # sectors of elements [a, a + k) of size e
+        return torch.where(k > 0, ((a + k) * e - 1) // 32 - a * e // 32 + 1,
+                           0)
+
+    n_sectors = 0
+    for e in [1] + [c.data.element_size() for c in cols] + [1] * len(cols):
+        n_sectors += int((sectors(start, first, e)
+                          + sectors(torch.zeros_like(start), length - first,
+                                    e)).sum())
+    key_bytes = sum(c.data.element_size() + 1 for c in cols)
+    inserted = int(found_or_new.sum()) if op == "insert" else 0
+    nbytes = n * (key_bytes + 1 + 8 + 1) + 32 * n_sectors \
+        + 32 * inserted * (2 + 2 * len(cols))
+    return nbytes / HBM_BYTES_PER_S * 1e3
+
+
 def compare_hash_probe(table, cols, valid, op: str, path: str = "auto"):
     """Kernel B3 against its plain version on one input, each on its own
     copy of ``table``: ``(differences, plain result)``, the differences
     counted over slots, is_new or found, overflow and, for find-or-insert,
-    the final table."""
+    the final table. With a float64 key the kernel is also held against the
+    plain version on CPU copies of the inputs (the reference's float32
+    casts, NaN bits included, are the CPU's)."""
+    from risingwave_tpu_torch.common import Column
     from risingwave_tpu_torch.ops.hash_table import (
         ht_lookup, ht_lookup_or_insert, ht_lookup_or_insert_plain,
         ht_lookup_plain,
     )
+
+    def plain(table, cols, valid):
+        if op == "insert":
+            return ht_lookup_or_insert_plain(table, cols, valid)
+        return (table,) + ht_lookup_plain(table, cols, valid) \
+            + (torch.zeros((), dtype=torch.bool),)
+
+    def differences(got, want):
+        (gt, *gr), (wt, *wr) = got, want
+        err = sum(int((a.cpu() != b.cpu()).sum()) for a, b in zip(gr, wr))
+        return err + (table_errors(gt, wt) if op == "insert" else 0)
+
+    got_t = table.clone()
     if op == "insert":
-        want_t, got_t = table.clone(), table.clone()
-        _, s0, f0, o0 = ht_lookup_or_insert_plain(want_t, cols, valid)
-        _, s1, f1, o1 = ht_lookup_or_insert(got_t, cols, valid, path=path)
-        err = int(bool(o1) != bool(o0)) + table_errors(got_t, want_t)
+        got = ht_lookup_or_insert(got_t, cols, valid, path=path)
     else:
-        s0, f0 = ht_lookup_plain(table, cols, valid)
-        s1, f1 = ht_lookup(table, cols, valid)
-        o0 = torch.zeros((), dtype=torch.bool)
-        err = 0
-    err += int((s1 != s0).sum()) + int((f1 != f0).sum())
-    return err, (s0, f0, o0)
+        got = (got_t,) + ht_lookup(got_t, cols, valid) \
+            + (torch.zeros((), dtype=torch.bool),)
+    want = plain(table.clone(), cols, valid)
+    err = differences(got, want)
+    if any(c.data.dtype == torch.float64 for c in cols):
+        on_cpu = plain(to_device(table, "cpu"),
+                       [Column(c.data.cpu(), c.mask.cpu()) for c in cols],
+                       valid.cpu())
+        err += differences(got, on_cpu)
+    return err, tuple(want[1:])
+
+
+def to_device(table, device):
+    """A copy of a hash table on ``device``."""
+    from risingwave_tpu_torch.ops.hash_table import DeviceHashTable
+    return DeviceHashTable(
+        *(tuple(t.to(device, copy=True) for t in ts)
+          for ts in (table.key_data, table.key_mask)),
+        table.occupied.to(device, copy=True))
+
+
+def nan_cast_bits(device) -> list:
+    """The float32 bits of each NAN_PATTERNS float64 cast on ``device``."""
+    bits = torch.tensor([b - (1 << 64) if b >= 1 << 63 else b
+                         for b in NAN_PATTERNS], dtype=torch.int64)
+    f = bits.view(torch.float64).to(device).to(torch.float32)
+    return [b & 0xFFFFFFFF for b in f.view(torch.int32).cpu().tolist()]
 
 
 def check_hash_probe(device, time_it: bool = True) -> dict:
@@ -432,12 +575,16 @@ def check_hash_probe(device, time_it: bool = True) -> dict:
     kernels line."""
     from risingwave_tpu_torch.ops.hash_table import (
         ht_lookup, ht_lookup_or_insert, ht_lookup_or_insert_plain,
-        ht_lookup_plain,
+        ht_lookup_plain, last_claim_rounds,
     )
+    card = nan_cast_bits(device)
+    print(f"nan_cast: cpu={[hex(b) for b in NAN_PATTERNS.values()]} "
+          f"card={[hex(b) for b in card]} "
+          f"equal={card == list(NAN_PATTERNS.values())}")
     timings = {}
     for name, op in HASH_CASES:
         table, cols, valid = hash_case(name, device)
-        for path in ("block", "grid") if op == "insert" else ("auto",):
+        for path in B3_PATHS if op == "insert" else ("auto",):
             err, (s0, f0, o0) = compare_hash_probe(table, cols, valid, op,
                                                    path)
             if err:
@@ -457,18 +604,23 @@ def check_hash_probe(device, time_it: bool = True) -> dict:
             def plain():
                 ht_lookup_plain(table, cols, valid)
         bound_ms, bound_by = hash_probe_bound(table, cols, valid, s0, f0, op)
+        floor_ms = hash_probe_floor(table, cols, valid, s0, f0, op)
         line = (f"hash_probe {op} {name}: N={valid.shape[0]} "
                 f"cap={table.capacity} differences=0 "
                 f"overflow={bool(o0)} hits_or_new={int(f0.sum())} "
-                f"bound_ms={bound_ms}")
+                f"bound_ms={bound_ms} sector_floor_ms={floor_ms}")
         if time_it:
             ms, plain_ms, call_ms = probe_times(kernel, plain)
+            # the claim rounds of the phased path's last (timed) call
+            rounds = last_claim_rounds(device) \
+                if op == "insert" and valid.shape[0] <= CHUNK else None
             line += (f" kernel_ms={ms} call_ms={call_ms} "
-                     f"plain_ms={plain_ms}")
+                     f"plain_ms={plain_ms} claim_rounds={rounds}")
             if name in ("q5", "find_hits_misses"):
                 timings[op] = {"ms": ms, "plain_ms": plain_ms,
                                "call_ms": call_ms, "bound_ms": bound_ms,
-                               "bound_by": bound_by, "case": name}
+                               "bound_by": bound_by, "floor_ms": floor_ms,
+                               "claim_rounds": rounds, "case": name}
         print(line)
     return timings
 
@@ -710,16 +862,19 @@ def trace(pipeline, chunks, device) -> dict:
 
 def trace_summary(prof, wall: float, rows_in: int) -> dict:
     """Wall seconds, summed device seconds, the device's busy share, the
-    device operations run (kernels and copies) and the five with the most
-    device time."""
+    device operations run (kernels and copies), kernel B3's device ms and
+    the five operations with the most device time; B3's ms also by kernel
+    (``b3_by_kernel``)."""
     events = [e for e in prof.key_averages()
               if getattr(e, "self_device_time_total", 0) > 0]
     rows = sorted(((e.self_device_time_total, e.key) for e in events),
                   reverse=True)
     busy = sum(us for us, _ in rows) / 1e6
+    b3 = {n: sum(us for us, k in rows if n in k) / 1e3 for n in B3_KERNELS}
     return {"rows_in": rows_in, "wall_s": wall, "device_busy_s": busy,
             "busy_share": busy / wall,
             "device_ops": sum(e.count for e in events),
+            "b3_ms": sum(b3.values()), "b3_by_kernel": b3,
             "top": [[k[:60], us / 1e3] for us, k in rows[:5]]}
 
 
@@ -1273,9 +1428,11 @@ def main() -> int:
     print("q7_trace: " + json.dumps(trace(q7_pipeline, head, device)))
     print("q5_trace: " + json.dumps(trace(q5_pipeline, head, device)))
     print("q7_fused_trace: " + json.dumps(trace_fused(fq7)))
-    print("q5_fused_trace: " + json.dumps(trace_fused(fq5)))
-    print("q8_fused_trace: " + json.dumps(trace_fused(fq8)))
-    print("q3_fused_trace: " + json.dumps(trace_fused(fq3b)))
+    b3_epoch_ms = {}    # B3's device ms in one fused epoch of each path
+    for path, runner in (("q5", fq5), ("q8", fq8), ("q3", fq3b)):
+        summary = trace_fused(runner)
+        b3_epoch_ms[f"fused {path}"] = summary["b3_ms"]
+        print(f"{path}_fused_trace: " + json.dumps(summary))
     fq3b.check()
 
     # kernel times on the inputs their path gave them: B1 on the q7 run's
@@ -1356,10 +1513,13 @@ def main() -> int:
         "ms": ins["ms"], "kernel_ms": ins["ms"], "plain_ms": ins["plain_ms"],
         "call_ms": ins["call_ms"], "timing": "profiler",
         "bound_ms": ins["bound_ms"], "bound_us": ins["bound_ms"] * 1e3,
-        "bound_by": ins["bound_by"],
+        "bound_by": ins["bound_by"], "sector_floor_ms": ins["floor_ms"],
+        "claim_rounds": ins["claim_rounds"],
         "find_input": find["case"], "find_ms": find["ms"],
         "find_plain_ms": find["plain_ms"],
-        "find_bound_ms": find["bound_ms"], "library_ms": None}]}))
+        "find_bound_ms": find["bound_ms"],
+        "find_sector_floor_ms": find["floor_ms"],
+        "epoch_ms": b3_epoch_ms, "library_ms": None}]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

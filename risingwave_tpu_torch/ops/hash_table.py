@@ -6,10 +6,12 @@ probed at once in rounds of gather / compare / claim, capped at
 ``lax.while_loop`` on the device. For tensors on a CUDA device,
 ``ht_lookup_or_insert`` and ``ht_lookup`` launch kernel B3
 (``csrc/hash_probe.cu``), which hashes the keys (bit for bit
-``common/hashing.hash_columns``) and keeps the rounds on the card, reading
-nothing back to the host. For tensors on the CPU they run the plain
-versions, ``ht_lookup_or_insert_plain`` and ``ht_lookup_plain``: the same
-rounds as a Python loop that reads ``any(~done)`` from the device each
+``common/hashing.hash_columns``), finds each row's first match-or-empty slot
+a window of slots at a time, settles every row that meets an empty slot
+from the bids placed there, and runs the claim rounds only among the rows
+that lose a slot to another key, reading nothing back to the host. For tensors on the CPU they run the
+plain versions, ``ht_lookup_or_insert_plain`` and ``ht_lookup_plain``: the
+same rounds as a Python loop that reads ``any(~done)`` from the device each
 round. Neither falls back to the other.
 
 The slot layout is equal slot for slot to the reference's, because flush
@@ -194,7 +196,7 @@ def ht_lookup_plain(table: DeviceHashTable, key_cols: Sequence[Column],
 _DTYPE_CODES = {torch.bool: 0, torch.int32: 1, torch.int64: 2,
                 torch.float64: 3}
 _MAX_KEY_COLS = 4
-_PATHS = {"auto": 0, "block": 1, "grid": 2}
+_PATHS = {"auto": 0, "phased": 1, "grid": 2}
 _CLAIM_FREE = 0x7FFFFFFF
 
 
@@ -206,27 +208,46 @@ def _library():
                 ctypes.POINTER(ctypes.c_int), arr, arr, ptr,
                 ctypes.c_longlong]
         lib.hash_probe_insert_launch.argtypes = head + [ptr] * 4 + [
-            ctypes.c_int, ptr]
+            ctypes.c_longlong, ctypes.c_int, ptr]
         lib.hash_probe_insert_launch.restype = ctypes.c_int
         lib.hash_probe_find_launch.argtypes = head + [ptr] * 3
         lib.hash_probe_find_launch.restype = ctypes.c_int
+        lib.hash_probe_workspace_words.argtypes = [ctypes.c_longlong] * 2
+        for f in (lib.hash_probe_workspace_words, lib.hash_probe_header_words,
+                  lib.hash_probe_rounds_word):
+            f.restype = ctypes.c_longlong
     return lib
 
 
-#: (device index, stream) -> int32 words: four round counters, then the
-#: claim words, all free between calls
-_workspaces: dict[tuple[int, int], torch.Tensor] = {}
+#: (device index, stream) -> (int32 words, rows, capacity): the header, the
+#: absent-row list for ``rows`` rows a call, the claim words for tables of
+#: up to ``capacity`` slots; every launch leaves it at rest
+_workspaces: dict[tuple[int, int], tuple[torch.Tensor, int, int]] = {}
 
 
-def _workspace(dev: torch.device, stream: int, cap: int) -> torch.Tensor:
-    """The claim workspace for this device and stream, made at the first
-    call for a capacity this large; the kernel leaves every word free."""
+def _workspace(lib, dev: torch.device, stream: int, n: int, cap: int):
+    """``(words, rows)`` of the workspace for this device and stream, made
+    anew when a call brings more rows or a larger table than it has seen;
+    the header starts at 0 and the claim words free."""
     ws = _workspaces.get((dev.index, stream))
-    if ws is None or ws.numel() < 4 + cap:
-        ws = torch.full((4 + cap,), _CLAIM_FREE, dtype=torch.int32,
-                        device=dev)
-        _workspaces[(dev.index, stream)] = ws
-    return ws
+    if ws is None or ws[1] < n or ws[2] < cap:
+        rows, cap = max(n, ws[1] if ws else 0), max(cap, ws[2] if ws else 0)
+        words = torch.full((lib.hash_probe_workspace_words(rows, cap),),
+                           _CLAIM_FREE, dtype=torch.int32, device=dev)
+        words[:lib.hash_probe_header_words()].zero_()
+        ws = _workspaces[(dev.index, stream)] = (words, rows, cap)
+    return ws[0], ws[1]
+
+
+def last_claim_rounds(device=None) -> int:
+    """The claim rounds the last phased find-or-insert on ``device`` and its
+    current stream ran (reads the card: for checks, not for a main path)."""
+    dev = torch.device(device if device is not None else "cuda")
+    if dev.index is None:
+        dev = torch.device("cuda", torch.cuda.current_device())
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    word = _library().hash_probe_rounds_word()
+    return int(_workspaces[(dev.index, stream)][0][word])
 
 
 def _launch_args(table: DeviceHashTable, key_cols: Sequence[Column],
@@ -288,8 +309,11 @@ def ht_lookup_or_insert(table: DeviceHashTable, key_cols: Sequence[Column],
       * ``overflow`` bool scalar tensor: some valid row failed to find/claim
         a slot.
 
-    Kernel B3 on a CUDA tensor, no host sync; ``path`` picks its one-block
-    path ("block"), its cooperative multi-block path ("grid") or, by N, one
+    Kernel B3 on a CUDA tensor, no host sync; ``path`` picks its phased
+    path ("phased": the windowed find with a bid on each absent row's first
+    empty slot, then, in the last block, the settling of those slots and
+    the claim rounds among the rows that lost one to another key), its
+    cooperative grid path ("grid": the rounds over every row) or, by N, one
     of them ("auto"), all with the same result. The plain version on a CPU
     tensor."""
     dev = valid.device
@@ -305,10 +329,10 @@ def ht_lookup_or_insert(table: DeviceHashTable, key_cols: Sequence[Column],
     lib = _library()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        ws = _workspace(dev, stream, table.capacity)
+        ws, rows = _workspace(lib, dev, stream, n, table.capacity)
         err = lib.hash_probe_insert_launch(
             *args, slots.data_ptr(), is_new.data_ptr(), overflow.data_ptr(),
-            ws.data_ptr(), _PATHS[path], stream)
+            ws.data_ptr(), rows, _PATHS[path], stream)
     del keep
     if err != 0:
         raise RuntimeError(f"hash_probe insert launch failed: cudaError "

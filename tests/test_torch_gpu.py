@@ -200,11 +200,12 @@ def test_float64_sum_on_card_within_bound_of_cpu(cuda):
 
 @pytest.mark.parametrize("name,op,path", [
     (name, op, path) for name, op in cs.HASH_CASES
-    for path in (("block", "grid") if op == "insert" else ("auto",))])
+    for path in (cs.B3_PATHS if op == "insert" else ("auto",))])
 def test_hash_probe_kernel_equals_plain(cuda, name, op, path):
     """B3 equals its plain version slot for slot (slots, is_new or found,
-    overflow and the final table) on each listed input; every find-or-insert
-    input on the one-block and on the cooperative grid path."""
+    overflow and the final table) on each listed input, and with a float64
+    key also the plain version on CPU copies; every find-or-insert input on
+    the phased and on the cooperative grid path."""
     from risingwave_tpu_torch.ops import hash_table as ht
     table, cols, valid = cs.hash_case(name, cuda)
     before = ht.ht_lookup_or_insert.launches + ht.ht_lookup.launches
