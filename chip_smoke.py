@@ -33,13 +33,34 @@ Phases (any failure exits non-zero and prints no result line):
      the top 10 rebuilt from the emitted deletes and inserts equals numpy q3
      over every event so far, flags clear; a second run takes one epoch
      under the sync check;
-  9. profiled runs (q7 and q5 executors, one fused q7, q5, q8 and q3
+  9. the q5 executor as bench.py drives it: per epoch one ChunkBatch of 256
+     chunks from the device generator through Project → HashAgg(count(*))
+     (1<<21 groups), one warm-up and three timed epochs, then one epoch
+     whose batched ingest runs under the sync check; the net output equal
+     to numpy's group-by count; source rows/s and the device's busy share;
+ 10. the same over a StateTable on a MemoryStateStore, every barrier a
+     checkpoint, a watermark before the checkpoint of epoch 2 (state
+     cleaning, then compaction of the 1<<21 table through kernel B3), the
+     executor dropped after epoch 2 of 4 and recovered from the store: the
+     net output equal to an uninterrupted run's and numpy's, the stored
+     rows equal to numpy's groups at or above the watermark; the native row
+     codec required; checkpoint ms, compaction ms, recovery seconds and
+     kernel B3's launches in the recovery and the compaction;
+ 11. the q7 executor as bench.py drives it (two generators of one seed,
+     batched on both inputs, bench.py's 64 + 256 + 256 chunks), checked
+     against numpy q7;
+ 12. the same with state tables on the agg and both join sides, dropped
+     after epoch 2 of 3 and recovered (the join replays both sides through
+     kernels B1 and B3): the net output equal to numpy's and the
+     uninterrupted run's;
+ 13. profiled runs (q7 and q5 executors, one fused q7, q5, q8 and q3
      epoch): the device's busy share and top kernels; then one JSON line of
      every kernel: launches on its paths' runs, exact agreement, its time
      and its plain version's time on the inputs its path gave it, and its
      bound on an H100 (for B1 also its time and bound summed over every
-     input of the q7 run, with each input's count of keyed rows);
- 10. the last line: ``{"ok": true, "device": {...}}``.
+     input of the q7 run, with each input's count of keyed rows; B1's and
+     B3's launches on each path's run; B3 on the q5 compaction's input);
+ 14. the last line: ``{"ok": true, "device": {...}}``.
 
 It imports nothing of JAX and nothing of the JAX package.
 """
@@ -69,6 +90,14 @@ FUSED_CHUNKS_PER_EPOCH = 256
 Q7_BUCKETS = 1 << 15
 Q7_LANES = 128
 Q5_TABLE_CAPACITY = 1 << 21
+# bench.py measure_q7's executor shape
+Q7_AGG_CAPACITY = 1 << 16
+Q7_KEY_CAPACITY = 1 << 16
+Q7_BUCKET_WIDTH = 128
+# its chunks per epoch: a warm-up epoch of 64, then 512 timed (bench.py
+# measure_q7 with Q7_N_CHUNKS); a fourth epoch of 256 would take the 5 ms
+# windows past the agg's 1<<16 groups
+Q7_EPOCHS = [64, 256, 256]
 FUSED_TIMED_EPOCHS = 3       # after one warm-up epoch
 Q7_FUSED_SEED = 23           # bench.py measure_q7_fused
 Q5_FUSED_SEED = 17           # bench.py measure_q5_fused
@@ -465,25 +494,27 @@ def probe_lengths(table, cols, valid, slots, op: str) -> torch.Tensor:
 
 def hash_probe_bound(table, cols, valid, slots, found_or_new, op: str):
     """Least time on an H100 for these inputs, from the plain version's
-    result: per row its key words, masks and ``valid`` read and ``slots``
-    (8 B) and the flag (1 B) written; per probe taken (``probe_lengths``)
-    one ``occupied`` byte and each column's key word and mask read; per
-    inserted key its words, masks and ``occupied`` written. The hash and the
-    compares are far below any compute limit, so the bytes bound it."""
+    result: per row ``valid`` read and ``slots`` (8 B) and the flag (1 B)
+    written; per valid row its key words and masks read (an invalid row
+    needs no key); per probe taken (``probe_lengths``) one ``occupied`` byte
+    and each column's key word and mask read; per inserted key its words,
+    masks and ``occupied`` written. The hash and the compares are far below
+    any compute limit, so the bytes bound it."""
     key_bytes = sum(c.data.element_size() + 1 for c in cols)
     n = valid.shape[0]
+    n_valid = int(valid.sum())
     probes = int(probe_lengths(table, cols, valid, slots, op).sum())
     inserted = int(found_or_new.sum()) if op == "insert" else 0
-    nbytes = n * (key_bytes + 1 + 8 + 1) + probes * (1 + key_bytes) \
-        + inserted * (key_bytes + 1)
+    nbytes = n * (1 + 8 + 1) + n_valid * key_bytes \
+        + probes * (1 + key_bytes) + inserted * (key_bytes + 1)
     return nbytes / HBM_BYTES_PER_S * 1e3, "bytes"
 
 
 def hash_probe_floor(table, cols, valid, slots, found_or_new, op: str):
     """A sector-granular floor beside ``hash_probe_bound``, in ms at the
-    H100's memory rate: the same per-row bytes, but a row's probes (a run of
-    ``probe_lengths`` consecutive slots from its home, wrapping at the
-    capacity) move every 32-byte sector the run touches in ``occupied`` and
+    H100's memory rate: the same per-row bytes (keys for valid rows only),
+    but a row's probes (a run of ``probe_lengths`` consecutive slots from
+    its home, wrapping at the capacity) move every 32-byte sector the run touches in ``occupied`` and
     in each key column's words and masks, and each inserted key moves one
     whole sector per array it writes and one for its claim word. It leaves
     out that the path waits on at least two dependent memory round trips."""
@@ -506,7 +537,8 @@ def hash_probe_floor(table, cols, valid, slots, found_or_new, op: str):
                                     e)).sum())
     key_bytes = sum(c.data.element_size() + 1 for c in cols)
     inserted = int(found_or_new.sum()) if op == "insert" else 0
-    nbytes = n * (key_bytes + 1 + 8 + 1) + 32 * n_sectors \
+    nbytes = n * (1 + 8 + 1) + int(valid.sum()) * key_bytes \
+        + 32 * n_sectors \
         + 32 * inserted * (2 + 2 * len(cols))
     return nbytes / HBM_BYTES_PER_S * 1e3
 
@@ -741,12 +773,13 @@ class Drain:
                           np.concatenate([s for _, s in self.parts]))
 
 
-async def drive(executor, n_barriers_warm: int):
+async def drive(executor, n_barriers_warm: int, out=None):
     """Run ``executor`` to its end; returns (output multiset, seconds after
-    the warm-up barrier)."""
+    the warm-up barrier). The output goes into the Drain ``out`` if one is
+    given."""
     from risingwave_tpu_torch.common import StreamChunk
     from risingwave_tpu_torch.stream import Barrier
-    out = Drain()
+    out = Drain() if out is None else out
     seen = 0
     t0 = None
     async for m in executor.execute():
@@ -1242,6 +1275,441 @@ class FusedQ3:
         return len(self.history)
 
 
+# ---------------------------------------------------------------------------
+# phases 9 to 12: the q5 and q7 executors as bench.py drives them, their
+# checkpoint to state tables, watermark cleaning and recovery
+# ---------------------------------------------------------------------------
+
+class DeviceBidSource:
+    """bench.py's ``_DeviceBidSource``: a barrier, then per epoch one
+    ChunkBatch of ``sizes[i]`` chunks from the device generator ``gen`` and
+    a barrier. ``watermarks`` maps an epoch to a watermark on ``date_time``
+    sent just before its closing barrier; with ``checkpoint`` every
+    barrier is a checkpoint."""
+
+    def __init__(self, gen, sizes, first_epoch: int,
+                 checkpoint: bool = False, watermarks=None):
+        from risingwave_tpu_torch.connector import BID_SCHEMA
+        self.schema = BID_SCHEMA
+        self.gen, self.sizes, self.first_epoch = gen, sizes, first_epoch
+        self.checkpoint = checkpoint
+        self.watermarks = watermarks or {}
+
+    async def execute(self):
+        from risingwave_tpu_torch.stream import Barrier, Watermark
+        epoch = self.first_epoch
+        yield Barrier.new(epoch, checkpoint=self.checkpoint)
+        for k in self.sizes:
+            yield self.gen.next_batch(k)
+            epoch += 1
+            if epoch in self.watermarks:
+                yield Watermark(5, self.watermarks[epoch])
+            yield Barrier.new(epoch, checkpoint=self.checkpoint)
+
+
+def bench_gen(device):
+    """A bid generator as bench.py configures it (seed 42)."""
+    from risingwave_tpu_torch.connector import (
+        DeviceBidGenerator, NexmarkConfig,
+    )
+    return DeviceBidGenerator(NexmarkConfig(chunk_capacity=CHUNK),
+                              device=device)
+
+
+def bench_bids(device, sizes):
+    """(auction, price, date_time) on the host of the batches of
+    ``sizes[i]`` chunks a bench generator draws first, drawn again by a
+    generator of the same seed (outside any timed window)."""
+    gen = bench_gen(device)
+    cols = [[], [], []]
+    for k in sizes:
+        batch = gen.next_batch(k).chunk
+        for out, j in zip(cols, (0, 2, 5)):
+            out.append(batch.columns[j].data.reshape(-1).cpu().numpy())
+    return [np.concatenate(c) for c in cols]
+
+
+def q5_bench_pipeline(src, device, state_table=None):
+    """bench.py ``_q5_pipeline``: Project(tumble_start(date_time, 10 s),
+    auction) → HashAgg(count(*)), table capacity 1<<21."""
+    from risingwave_tpu_torch.common import INT64, TIMESTAMP
+    from risingwave_tpu_torch.expr import Literal, call, col, count_star
+    from risingwave_tpu_torch.stream import HashAggExecutor, ProjectExecutor
+    proj = ProjectExecutor(src, [
+        call("tumble_start", col(5, TIMESTAMP), Literal(Q5_WINDOW_US, INT64)),
+        col(0, INT64)], names=("window_start", "auction"))
+    return HashAggExecutor(proj, [0, 1], [count_star()],
+                           state_table=state_table,
+                           table_capacity=Q5_TABLE_CAPACITY,
+                           out_capacity=CHUNK, device=device)
+
+
+def q5_state_table(store):
+    from risingwave_tpu_torch.common import INT64, TIMESTAMP, Field
+    from risingwave_tpu_torch.expr import count_star
+    from risingwave_tpu_torch.storage import StateTable
+    from risingwave_tpu_torch.stream.hash_agg import agg_state_schema
+    schema = agg_state_schema([Field("window_start", TIMESTAMP),
+                               Field("auction", INT64)], [count_star()])
+    return StateTable(store, 1, schema, [0, 1])
+
+
+async def drain_into(executor, drain: Drain, store=None) -> None:
+    """Run ``executor`` to its end, every output chunk into ``drain``; each
+    checkpoint barrier commits ``store``."""
+    from risingwave_tpu_torch.common import StreamChunk
+    from risingwave_tpu_torch.stream import Barrier
+    async for m in executor.execute():
+        if isinstance(m, StreamChunk):
+            drain.add(m)
+        elif isinstance(m, Barrier) and store is not None and m.checkpoint:
+            store.commit(m.epoch.curr)
+
+
+async def sync_free_batch(agg, batch) -> None:
+    """One batch through the pipeline's Project and HashAgg batched steps
+    (``map_chunk_batch``) with synchronizing CUDA calls made errors."""
+    with no_host_sync():
+        async for projected in agg.input.map_chunk_batch(batch):
+            async for _ in agg.map_chunk_batch(projected):
+                pass
+
+
+def run_q5_bench(device) -> dict:
+    """Phase 9: the q5 executor in bench form — one warm-up epoch and
+    ``FUSED_TIMED_EPOCHS`` timed epochs of 256 chunks, then one epoch whose
+    batched ingest runs under the sync check and the executor's barrier
+    flush; the net output equal to a numpy group-by count of the same
+    bids."""
+    from risingwave_tpu_torch.stream import Barrier
+    gen = bench_gen(device)
+    sizes = [FUSED_CHUNKS_PER_EPOCH] * (1 + FUSED_TIMED_EPOCHS)
+    epochs = len(sizes)
+    agg = q5_bench_pipeline(DeviceBidSource(gen, sizes, 1), device)
+    drain = Drain()
+    b3_launches(reset=True)
+    _, secs = asyncio.run(drive(agg, 2, drain))
+    launches = b3_launches()
+    batch = gen.next_batch(FUSED_CHUNKS_PER_EPOCH)
+    asyncio.run(sync_free_batch(agg, batch))
+
+    async def flush():
+        async for out in agg.on_barrier(Barrier.new(epochs + 2)):
+            drain.add(out)
+
+    asyncio.run(flush())
+    got = drain.multiset()
+    auction, _, ts = bench_bids(device, sizes + [FUSED_CHUNKS_PER_EPOCH])
+    if got != q5_expected_cols(auction, ts):
+        raise AssertionError("q5 bench-form output differs from numpy "
+                             "group-by count")
+    rate = FUSED_TIMED_EPOCHS * FUSED_CHUNKS_PER_EPOCH * CHUNK / secs
+    return {"groups": len(got), "source_rows_per_s": rate,
+            "b3_launches": launches}
+
+
+def trace_q5_bench(device) -> dict:
+    """Two epochs of a fresh q5 bench-form pipeline under the profiler's
+    CUDA trace: as ``trace``."""
+    from torch.profiler import ProfilerActivity, profile
+    agg = q5_bench_pipeline(DeviceBidSource(
+        bench_gen(device), [FUSED_CHUNKS_PER_EPOCH] * 2, 1), device)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        asyncio.run(drive(agg, 1))
+        wall = time.perf_counter() - t0
+    return trace_summary(prof, wall, 2 * FUSED_CHUNKS_PER_EPOCH * CHUNK)
+
+
+class Instrumented:
+    """Times an executor's checkpoints and its core's ``compact`` on the
+    card, and counts kernel B3's launches inside each compaction; keeps the
+    last compaction's B3 input (keys and live mask) for the kernels line."""
+
+    def __init__(self):
+        self.ckpt_ms, self.ckpt_rows = [], []
+        self.compact_ms, self.compact_b3 = [], 0
+        self.compact_input = None
+
+    def attach(self, agg) -> None:
+        checkpoint, compact = agg._checkpoint_to_state_table, agg.core.compact
+
+        def timed_checkpoint(epoch):
+            rows = int(agg.state.ckpt_dirty.sum())
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            checkpoint(epoch)
+            torch.cuda.synchronize()
+            self.ckpt_ms.append((time.perf_counter() - t0) * 1e3)
+            self.ckpt_rows.append(rows)
+
+        def timed_compact(state):
+            from risingwave_tpu_torch.common import Column
+            table = state.table
+            self.compact_input = (
+                [Column(d.clone(), m.clone())
+                 for d, m in zip(table.key_data, table.key_mask)],
+                table.occupied & (state.lanes[0] > 0))
+            torch.cuda.synchronize()
+            before = b3_launches()
+            t0 = time.perf_counter()
+            new = compact(state)
+            torch.cuda.synchronize()
+            self.compact_ms.append((time.perf_counter() - t0) * 1e3)
+            self.compact_b3 += b3_launches() - before
+            return new
+
+        agg._checkpoint_to_state_table = timed_checkpoint
+        agg.core.compact = timed_compact
+
+
+def run_q5_recovery(device) -> dict:
+    """Phase 10: the q5 bench form over a StateTable, every barrier a
+    checkpoint, a watermark on date_time before the checkpoint of epoch 2
+    (the first event time of epoch 3, so no later bid falls below it: the
+    checkpoint cleans every earlier window and compacts the 1<<21 table on
+    the card). After epoch 2 of 4 the executor is dropped and a new one
+    recovers from the store through kernel B3. The two halves' net output
+    must equal an uninterrupted run's and numpy's; the store's committed
+    rows must equal numpy's groups at or above the watermark."""
+    from risingwave_tpu_torch.connector import NexmarkConfig
+    from risingwave_tpu_torch.native import codec
+    from risingwave_tpu_torch.storage import MemoryStateStore
+    if codec() is None:
+        raise AssertionError("the native row codec did not build")
+    k = FUSED_CHUNKS_PER_EPOCH
+    cfg = NexmarkConfig(chunk_capacity=CHUNK)
+    us_per_event = max(1_000_000 // cfg.events_per_second, 1)
+    wm_ts = cfg.start_time_us + 2 * k * CHUNK * us_per_event
+    wm = {3: wm_ts}      # the barrier that closes epoch 2 is epoch 3's
+
+    def instrumented(src, store, inst):
+        agg = q5_bench_pipeline(src, device, q5_state_table(store))
+        inst.attach(agg)
+        return agg
+
+    # the uninterrupted run
+    whole = Drain()
+    store0 = MemoryStateStore()
+    asyncio.run(drain_into(instrumented(
+        DeviceBidSource(bench_gen(device), [k] * 4, 1, True, wm), store0,
+        Instrumented()), whole, store0))
+    # the run dropped after epoch 2 and recovered
+    inst = Instrumented()
+    halves = Drain()
+    store = MemoryStateStore()
+    gen = bench_gen(device)
+    agg = instrumented(DeviceBidSource(gen, [k] * 2, 1, True, wm), store,
+                       inst)
+    asyncio.run(drain_into(agg, halves, store))
+    del agg
+    torch.cuda.empty_cache()
+    b3_launches(reset=True)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    agg = instrumented(DeviceBidSource(gen, [k] * 2, 4, True), store, inst)
+    torch.cuda.synchronize()
+    recovery_s = time.perf_counter() - t0
+    recovery_b3 = b3_launches()
+    reloaded = int(agg.state.table.occupied.sum())
+    asyncio.run(drain_into(agg, halves, store))
+    auction, _, ts = bench_bids(device, [k] * 4)
+    want = q5_expected_cols(auction, ts)
+    got = halves.multiset()
+    if got != want or whole.multiset() != want:
+        raise AssertionError("q5 recovery: the net output differs from the "
+                             "uninterrupted run or from numpy")
+    wm_window = wm_ts // Q5_WINDOW_US * Q5_WINDOW_US
+    # a stored row: the group key, the row count, the count(*) lane
+    stored = collections.Counter(
+        {(int(w), int(a)): int(n) for w, a, _, n in
+         q5_state_table(store).scan_all()})
+    live = collections.Counter({(w, a): n for (w, a, n) in want
+                                if w >= wm_window})
+    if stored != live:
+        raise AssertionError(f"q5 recovery: the store holds {len(stored)} "
+                             f"groups, numpy {len(live)} at or above the "
+                             "watermark")
+    if not inst.compact_ms or inst.compact_b3 <= 0 or recovery_b3 <= 0:
+        raise AssertionError("q5 recovery: compaction or reload did not run "
+                             "kernel B3")
+    keys, live_mask = inst.compact_input
+    return {"codec": "native", "groups": len(want),
+            "watermark_window": wm_window,
+            "stored_groups": len(stored), "reloaded_groups": reloaded,
+            "checkpoints": len(inst.ckpt_ms),
+            "checkpoint_ms_mean": sum(inst.ckpt_ms) / len(inst.ckpt_ms),
+            "checkpoint_ms_max": max(inst.ckpt_ms),
+            "rows_written": inst.ckpt_rows,
+            "compact_ms": inst.compact_ms, "compact_b3": inst.compact_b3,
+            "recovery_s": recovery_s, "recovery_b3": recovery_b3,
+            "compact_input": (keys, live_mask)}
+
+
+def q7_bench_join(probe_src, build_src, device, store=None):
+    """bench.py measure_q7's pipeline: Project → HashAgg(max(price)) per 5 ms
+    window, capacity 1<<16 → HashJoin(price = max), key capacity 1<<16,
+    bucket width 128. With ``store``: state tables on the agg and both join
+    sides, and the probe side keeps date_time (unique per bid) so that its
+    rows have a primary key (window_start, date_time)."""
+    from risingwave_tpu_torch.common import INT64, TIMESTAMP
+    from risingwave_tpu_torch.expr import Literal, agg, call, col
+    from risingwave_tpu_torch.storage import StateTable
+    from risingwave_tpu_torch.stream import (
+        HashAggExecutor, HashJoinExecutor, ProjectExecutor,
+    )
+    from risingwave_tpu_torch.stream.hash_agg import agg_state_schema
+    window = call("tumble_start", col(5, TIMESTAMP),
+                  Literal(Q7_WINDOW_US, INT64))
+    cols = [window, col(0, INT64), col(2, INT64)]
+    names = ["window_start", "auction", "price"]
+    if store is not None:
+        cols.append(col(5, TIMESTAMP))
+        names.append("date_time")
+    probe = ProjectExecutor(probe_src, cols, names=names)
+    build_pre = ProjectExecutor(build_src, [window, col(2, INT64)],
+                                names=("window_start", "price"))
+    calls = [agg("max", 1, INT64)]
+    tables = {}
+    agg_table = None
+    if store is not None:
+        agg_table = StateTable(store, 1, agg_state_schema(
+            [build_pre.schema[0]], calls), [0])
+    build = HashAggExecutor(build_pre, [0], calls, state_table=agg_table,
+                            table_capacity=Q7_AGG_CAPACITY,
+                            out_capacity=CHUNK, device=device)
+    if store is not None:
+        tables = dict(
+            left_state_table=StateTable(store, 2, probe.schema, [0, 3]),
+            right_state_table=StateTable(store, 3, build.schema, [0]))
+    cond = call("equal", col(2, INT64), col(len(cols) + 1, INT64))
+    return HashJoinExecutor(probe, build, [0], [0], condition=cond,
+                            key_capacity=Q7_KEY_CAPACITY,
+                            bucket_width=Q7_BUCKET_WIDTH, out_capacity=CHUNK,
+                            device=device, **tables)
+
+
+def q7_expected_with_ts(auction, price, ts) -> collections.Counter:
+    """``q7_expected_cols`` with each row's date_time after its price."""
+    ws = ts // Q7_WINDOW_US * Q7_WINDOW_US
+    uniq, inverse = np.unique(ws, return_inverse=True)
+    win_max = np.full(len(uniq), np.iinfo(np.int64).min)
+    np.maximum.at(win_max, inverse, price)
+    hit = price == win_max[inverse]
+    rows = np.stack([ws[hit], auction[hit], price[hit], ts[hit], ws[hit],
+                     price[hit]], 1)
+    return counter_of(rows, np.ones(len(rows), np.int64))
+
+
+def run_q7_bench(device) -> dict:
+    """Phase 11: the q7 executor in bench form (two generators of one seed,
+    batched on both inputs), bench.py's size: a warm-up epoch of 64 chunks,
+    then two timed epochs of 256; the net output equal to numpy q7 over
+    the same bids."""
+    rt_mod = importlib.import_module("risingwave_tpu_torch.ops.rank_totals")
+    join = q7_bench_join(DeviceBidSource(bench_gen(device), Q7_EPOCHS, 1),
+                         DeviceBidSource(bench_gen(device), Q7_EPOCHS, 1),
+                         device)
+    b3_launches(reset=True)
+    rt_mod.rank_totals.launches = 0
+    got, secs = asyncio.run(drive(join, 2))
+    b1, b3 = rt_mod.rank_totals.launches, b3_launches()
+    want = q7_expected_cols(*bench_bids(device, Q7_EPOCHS))
+    if got != want:
+        raise AssertionError(f"q7 bench-form output differs from numpy q7: "
+                             f"{sum((got - want).values())} extra, "
+                             f"{sum((want - got).values())} missing rows")
+    return {"rows_out": sum(got.values()), "multiset": got,
+            "source_rows_per_s": sum(Q7_EPOCHS[1:]) * CHUNK / secs,
+            "key_capacity": join.core.capacity, "bucket_width": join.core.W,
+            "b1_launches": b1, "b3_launches": b3}
+
+
+def run_q7_recovery(device, uninterrupted: collections.Counter) -> dict:
+    """Phase 12: the q7 bench form with state tables on the agg and both
+    join sides, every barrier a checkpoint; dropped after epoch 2 of the
+    bench's 3 and recovered (the join replays both sides through kernels B1
+    and B3). The net output must equal numpy's and, without date_time, the
+    uninterrupted bench-form run's over the same bids."""
+    from risingwave_tpu_torch.storage import MemoryStateStore
+    rt_mod = importlib.import_module("risingwave_tpu_torch.ops.rank_totals")
+    store = MemoryStateStore()
+    probe_gen, build_gen = bench_gen(device), bench_gen(device)
+    drain = Drain()
+
+    def pipeline(sizes, first):
+        return q7_bench_join(
+            DeviceBidSource(probe_gen, sizes, first, True),
+            DeviceBidSource(build_gen, sizes, first, True), device, store)
+
+    join = pipeline(Q7_EPOCHS[:2], 1)
+    ckpt_ms = []
+    checkpoint = join._checkpoint
+
+    def timed_checkpoint(epoch):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        checkpoint(epoch)
+        ckpt_ms.append((time.perf_counter() - t0) * 1e3)
+
+    join._checkpoint = timed_checkpoint
+    asyncio.run(drain_into(join, drain, store))
+    del join, checkpoint
+    torch.cuda.empty_cache()
+    replayed = store.table_len(2) + store.table_len(3)
+    b3_launches(reset=True)
+    rt_mod.rank_totals.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    join = pipeline(Q7_EPOCHS[2:], 4)
+    torch.cuda.synchronize()
+    recovery_s = time.perf_counter() - t0
+    b1, b3 = rt_mod.rank_totals.launches, b3_launches()
+    asyncio.run(drain_into(join, drain, store))
+    got = drain.multiset()
+    auction, price, ts = bench_bids(device, Q7_EPOCHS)
+    if got != q7_expected_with_ts(auction, price, ts):
+        raise AssertionError("q7 recovery: the net output differs from "
+                             "numpy q7")
+    no_ts = collections.Counter()
+    for row, n in got.items():
+        no_ts[row[:3] + row[4:]] += n
+    if no_ts != uninterrupted:
+        raise AssertionError("q7 recovery: the net output differs from the "
+                             "uninterrupted run's")
+    if b1 <= 0 or b3 <= 0:
+        raise AssertionError("q7 recovery did not run kernels B1 and B3")
+    return {"rows_out": sum(got.values()), "rows_replayed": replayed,
+            "recovery_s": recovery_s, "b1_launches": b1, "b3_launches": b3,
+            "checkpoint_ms": ckpt_ms}
+
+
+def compact_probe_times(compact_input) -> dict:
+    """Kernel B3 on the input of the q5 run's last compaction (every slot
+    of the 1<<21 table a row, its live groups valid), into an empty table:
+    slots equal to the plain version's, device times of kernel and plain
+    version, and the bound."""
+    from risingwave_tpu_torch.common import INT64, TIMESTAMP
+    from risingwave_tpu_torch.ops.hash_table import (
+        ht_lookup_or_insert, ht_lookup_or_insert_plain, ht_new,
+    )
+    keys, live = compact_input
+    empty = ht_new((TIMESTAMP, INT64), Q5_TABLE_CAPACITY, live.device)
+    err, (s0, f0, _) = compare_hash_probe(empty, keys, live, "insert")
+    if err:
+        raise AssertionError(f"hash_probe differs from plain on the compact "
+                             f"input: {err} differences")
+    bound_ms, bound_by = hash_probe_bound(empty, keys, live, s0, f0,
+                                          "insert")
+    ms, plain_ms, call_ms = probe_times(
+        lambda: ht_lookup_or_insert(empty.clone(), keys, live),
+        lambda: ht_lookup_or_insert_plain(empty.clone(), keys, live))
+    return {"n": int(live.shape[0]), "live": int(live.sum()), "ms": ms,
+            "plain_ms": plain_ms, "call_ms": call_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by}
+
+
 def run_fused(runner, timed_epochs: int):
     """A warm-up epoch, then ``timed_epochs`` epochs on the host clock
     (drains to the host included). Returns (the drain, timed source rows
@@ -1423,7 +1891,47 @@ def main() -> int:
         if n <= 0:
             raise AssertionError(f"the {path} run never launched hash_probe")
 
-    # -- phase 9: where the time goes (device busy share)
+    # -- phase 9: the q5 executor in bench form (ChunkBatch ingest from the
+    # device generator), one epoch's batched ingest under the sync check
+    q5b = run_q5_bench(device)
+    b3_paths["q5 executor (bench form)"] = q5b["b3_launches"]
+    q5b_trace = trace_q5_bench(device)
+    print(f"q5_bench: groups={q5b['groups']} source_rows/s="
+          f"{q5b['source_rows_per_s']:.1f} busy_share="
+          f"{q5b_trace['busy_share']} hash_probe.launches="
+          f"{q5b['b3_launches']} sync_free_batch=ok [{card}]")
+
+    # -- phase 10: q5 checkpoint to a StateTable, watermark cleaning and
+    # compaction of the 1<<21 table, drop and recovery
+    q5r = run_q5_recovery(device)
+    b3_paths["q5 recovery"] = q5r["recovery_b3"]
+    b3_paths["q5 compact"] = q5r["compact_b3"]
+    print("q5_recovery: " + json.dumps(
+        {k: v for k, v in q5r.items() if k != "compact_input"})
+        + f" [{card}]")
+
+    # -- phase 11: the q7 executor in bench form, batched on both inputs
+    q7b = run_q7_bench(device)
+    b3_paths["q7 executor (bench form)"] = q7b["b3_launches"]
+    b1_paths = {"q7 executor": q7_launches,
+                "q7 executor (bench form)": q7b["b1_launches"]}
+    print(f"q7_bench: rows_out={q7b['rows_out']} source_rows/s="
+          f"{q7b['source_rows_per_s']:.1f} key_capacity="
+          f"{q7b['key_capacity']} bucket_width={q7b['bucket_width']} "
+          f"rank_totals.launches={q7b['b1_launches']} hash_probe.launches="
+          f"{q7b['b3_launches']} [{card}]")
+
+    # -- phase 12: q7 checkpoint to state tables, drop and recovery
+    q7r = run_q7_recovery(device, q7b.pop("multiset"))
+    b3_paths["q7 recovery"] = q7r["b3_launches"]
+    b1_paths["q7 recovery"] = q7r["b1_launches"]
+    print("q7_recovery: " + json.dumps(q7r) + f" [{card}]")
+    for path, n in list(b3_paths.items()) + list(b1_paths.items()):
+        if n <= 0:
+            raise AssertionError(f"the {path} run never launched its "
+                                 "kernel")
+
+    # -- phase 13: where the time goes (device busy share)
     head = chunks[:2 * CHUNKS_PER_EPOCH]
     print("q7_trace: " + json.dumps(trace(q7_pipeline, head, device)))
     print("q5_trace: " + json.dumps(trace(q5_pipeline, head, device)))
@@ -1467,6 +1975,8 @@ def main() -> int:
         im_fn, interval_join.interval_match_plain, match_input)
     m_bound_ms, m_bound_by = interval_match_bound(nb, lanes)
     ins, find = b3_timing["insert"], b3_timing["find"]
+    compact_b3 = compact_probe_times(q5r["compact_input"])
+    print("hash_probe compact input: " + json.dumps(compact_b3))
     epochs = {"fused q5": FUSED_TIMED_EPOCHS + 1,
               "fused q8": Q8_Q3_TIMED_EPOCHS + 1,
               "fused q3": Q8_Q3_TIMED_EPOCHS + 1}
@@ -1476,7 +1986,8 @@ def main() -> int:
         "source": "risingwave_tpu_torch/csrc/rank_totals.cu",
         "replaces": "risingwave_tpu/ops/pallas_rank.py:85",
         "tpu_counterpart": "risingwave_tpu/ops/pallas_rank.py::_kernel",
-        "path": "q7 executor", "launches": q7_launches,
+        "path": "q7 executor; q7 executor (bench form); q7 recovery",
+        "launches": q7_launches, "path_launches": b1_paths,
         "equal": max_err == 0, "max_abs_err": max_err, "shape": [n, w],
         "ms": ms, "kernel_ms": ms, "plain_ms": plain_ms,
         "call_ms": call_ms, "plain_call_ms": plain_call_ms,
@@ -1504,7 +2015,9 @@ def main() -> int:
         "tpu_counterpart": "risingwave_tpu/ops/hash_table.py::"
             "ht_lookup_or_insert (:77) and ::ht_lookup (:154), a "
             "lax.while_loop with no Pallas kernel",
-        "path": "q7 and q5 executors, fused q5, q8 and q3",
+        "path": "q7 and q5 executors, fused q5, q8 and q3, q5 and q7 "
+                "executors in bench form, q5 recovery, q5 compact, q7 "
+                "recovery",
         "launches": sum(b3_paths.values()), "path_launches": b3_paths,
         "launches_per_epoch": {p: b3_paths[p] / e
                                for p, e in epochs.items()},
@@ -1519,7 +2032,8 @@ def main() -> int:
         "find_plain_ms": find["plain_ms"],
         "find_bound_ms": find["bound_ms"],
         "find_sector_floor_ms": find["floor_ms"],
-        "epoch_ms": b3_epoch_ms, "library_ms": None}]}))
+        "epoch_ms": b3_epoch_ms, "compact_input": compact_b3,
+        "library_ms": None}]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -68,6 +68,38 @@ class StreamChunk:
         return torch.where(self.vis, s, torch.zeros_like(s))
 
 
+@dataclasses.dataclass
+class ChunkBatch:
+    """K stacked StreamChunks: every tensor carries a leading [K] axis.
+
+    The unit of batched ingest (``risingwave_tpu/common/chunk.py``'s
+    ``ChunkBatch``): a source hands an epoch's K chunks over at once and
+    each executor takes them in one step; ``at(i)`` is chunk i as views."""
+
+    chunk: StreamChunk  # tensors: [K, C]
+
+    @property
+    def num_chunks(self) -> int:
+        return self.chunk.ops.shape[0]
+
+    @property
+    def chunk_capacity(self) -> int:
+        return self.chunk.ops.shape[1]
+
+    def at(self, i: int) -> StreamChunk:
+        return map_tensors(self.chunk, lambda a: a[i])
+
+
+def stack_chunks(chunks: Sequence[StreamChunk]) -> ChunkBatch:
+    """Chunks of one capacity and schema as one ChunkBatch."""
+    return ChunkBatch(StreamChunk(
+        torch.stack([c.ops for c in chunks]),
+        torch.stack([c.vis for c in chunks]),
+        tuple(Column(torch.stack([c.columns[i].data for c in chunks]),
+                     torch.stack([c.columns[i].mask for c in chunks]))
+              for i in range(len(chunks[0].columns)))))
+
+
 def map_tensors(chunk: StreamChunk, f) -> StreamChunk:
     """The chunk with ``f`` applied to every tensor (ops, vis, each column's
     data and mask)."""
@@ -88,8 +120,12 @@ def make_chunk(
     ops: Optional[Sequence[int]] = None,
     capacity: int = DEFAULT_CHUNK_CAPACITY,
     device=DEFAULT_DEVICE,
+    physical: bool = False,
 ) -> StreamChunk:
-    """Host constructor: python rows → padded chunk on ``device``."""
+    """Host constructor: python rows → padded chunk on ``device``.
+
+    ``physical=True`` takes raw physical values (the state-table storage
+    form) and skips the logical encoding: the recovery-reload path."""
     n = len(rows)
     if n > capacity:
         raise ValueError(f"{n} rows > capacity {capacity}")
@@ -107,12 +143,19 @@ def make_chunk(
         for ri, row in enumerate(rows):
             v = row[ci]
             if v is not None:
-                data[ri] = t.to_physical(v)
+                data[ri] = v if physical else t.to_physical(v)
                 mask[ri] = True
         cols.append(Column(torch.as_tensor(data, device=device),
                            torch.as_tensor(mask, device=device)))
     return StreamChunk(torch.as_tensor(ops_arr, device=device),
                        torch.as_tensor(vis, device=device), tuple(cols))
+
+
+def physical_chunk(schema: Schema, rows: Sequence[Sequence[Any]],
+                   capacity: int, device=DEFAULT_DEVICE) -> StreamChunk:
+    """Rows of raw physical values → chunk (``make_chunk(physical=True)``)."""
+    return make_chunk(schema, rows, capacity=capacity, device=device,
+                      physical=True)
 
 
 def chunk_to_rows(chunk: StreamChunk, schema: Schema,

@@ -9,8 +9,9 @@ masked off.
 
 from __future__ import annotations
 
-from typing import Sequence
+from typing import Optional, Sequence
 
+import numpy as np
 import torch
 
 from .chunk import Column
@@ -70,3 +71,58 @@ def hash_columns(cols: Sequence[Column]) -> torch.Tensor:
 def vnode_of(cols: Sequence[Column]) -> torch.Tensor:
     """Per-row vnode in [0, VNODE_COUNT): the uint64 ``% 256`` as ``& 255``."""
     return (hash_columns(cols) & (VNODE_COUNT - 1)).to(torch.int32)
+
+
+def vnode_to_shard(vnode: torch.Tensor, num_shards: int) -> torch.Tensor:
+    """vnode → parallel shard: contiguous vnode ranges, one per shard."""
+    per = VNODE_COUNT // num_shards
+    return torch.clamp_max(vnode // per, num_shards - 1).to(torch.int32)
+
+
+def vnodes_of_rows(key_types: Sequence, key_rows: Sequence) -> list:
+    """Host-side vnode of each key-value tuple, by the same hash that every
+    routing path uses (``vnode_of``, here on CPU tensors). ``key_rows``
+    holds the distribution-key values, in key order."""
+    key_rows = list(key_rows)
+    out: list = []
+    bs = 1024
+    for i in range(0, len(key_rows), bs):
+        batch = key_rows[i:i + bs]
+        cols = []
+        for c, t in enumerate(key_types):
+            vals = [r[c] for r in batch]
+            data = np.array([v if v is not None else 0 for v in vals],
+                            dtype=t.np_dtype)
+            mask = np.array([v is not None for v in vals], dtype=bool)
+            cols.append(Column(torch.from_numpy(data),
+                               torch.from_numpy(mask)))
+        out.extend(vnode_of(cols).tolist())
+    return out
+
+
+def filter_rows_vnodes(key_types: Sequence, rows: Sequence,
+                       vnode_start: int, vnode_end: int) -> list:
+    """Key-prefixed rows whose distribution key hashes into
+    ``[vnode_start, vnode_end)``."""
+    rows = list(rows)
+    if vnode_start <= 0 and vnode_end >= VNODE_COUNT:
+        return rows
+    vns = vnodes_of_rows(key_types, [r[:len(key_types)] for r in rows])
+    return [r for r, vn in zip(rows, vns) if vnode_start <= vn < vnode_end]
+
+
+def shard_rows(key_types: Sequence, rows: Sequence, n_shards: int,
+               key_indices: Optional[Sequence[int]] = None) -> list:
+    """Rows partitioned into ``n_shards`` lists by ``vnode_to_shard``, the
+    map live routing uses. ``key_indices`` names the key columns in each row
+    (default: the first ``len(key_types)``)."""
+    rows = list(rows)
+    idx = (list(range(len(key_types))) if key_indices is None
+           else list(key_indices))
+    vns = vnodes_of_rows(key_types, [[r[i] for i in idx] for r in rows])
+    shards = vnode_to_shard(torch.tensor(vns, dtype=torch.int32),
+                            n_shards).tolist()
+    out: list[list] = [[] for _ in range(n_shards)]
+    for r, sh in zip(rows, shards):
+        out[sh].append(r)
+    return out

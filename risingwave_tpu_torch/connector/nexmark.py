@@ -3,10 +3,10 @@
 Counterpart of ``risingwave_tpu/connector/nexmark.py::NexmarkGenerator``:
 vectorized numpy on the host, a whole chunk per call, moved to ``device``.
 From the same seed it draws the same numbers in the same order as the
-reference, so both packages see the same rows. VARCHAR columns carry
-dictionary ids; the string dictionary is not ported, so the generator keeps
-its own vocabulary (``vocab[id]``) with ids assigned in the order in which
-the reference interns the same strings into a fresh dictionary.
+reference, so both packages see the same rows. VARCHAR columns carry ids of
+the process-wide ``GLOBAL_STRING_DICT``, into which each generator interns
+its strings in the reference's order; ``vocab[id]`` is the dictionary's
+strings as of the generator's construction.
 
 ``DeviceBidGenerator`` is the benchmark source: bids drawn on the device from
 counter-based Threefry keys (``threefry.py``), the same numbers the
@@ -23,8 +23,10 @@ import numpy as np
 import torch
 
 from .. import DEFAULT_DEVICE
-from ..common.chunk import Column, StreamChunk, map_tensors
-from ..common.types import INT64, TIMESTAMP, VARCHAR, Schema
+from ..common.chunk import ChunkBatch, Column, StreamChunk, map_tensors
+from ..common.types import (
+    GLOBAL_STRING_DICT, INT64, TIMESTAMP, VARCHAR, Schema,
+)
 from . import threefry
 
 BID_SCHEMA = Schema.of(
@@ -82,13 +84,9 @@ class NexmarkGenerator:
         self.device = torch.device(device)
         self.rng = np.random.default_rng(seed)
         self.events_so_far = 0
-        self.vocab: list[str] = [""]
-
         def intern(strings) -> np.ndarray:
-            ids = np.arange(len(self.vocab), len(self.vocab) + len(strings),
+            return np.array([GLOBAL_STRING_DICT.intern(s) for s in strings],
                             dtype=np.int32)
-            self.vocab.extend(strings)
-            return ids
 
         self._channel_ids = intern(_CHANNELS)
         self._url_ids = intern(_URLS)
@@ -97,6 +95,7 @@ class NexmarkGenerator:
         self._name_ids = intern([f"person-{i}" for i in range(997)])
         self._item_ids = intern([f"item-{i}" for i in range(499)])
         self._empty = 0
+        self.vocab = _vocab()
 
     # -- event-time / id helpers ---------------------------------------------
 
@@ -197,8 +196,9 @@ class DeviceBidGenerator:
     the reference's, in its order, from ``split(key, 7)``: hot auction
     (uniform < 0.9), cold auction offset, hot bidder, cold bidder offset,
     price (``100 * exp(u * log 1000)`` in float64, truncated), channel and
-    url. VARCHAR ids index ``vocab`` (the reference's ids index its process
-    dictionary, so compare strings, not ids)."""
+    url. VARCHAR ids are ``GLOBAL_STRING_DICT`` ids (``vocab[id]``); the
+    reference's index its own process dictionary, so compare strings, not
+    ids."""
 
     def __init__(self, config: NexmarkConfig = NexmarkConfig(),
                  seed: int = 42, device=DEFAULT_DEVICE):
@@ -207,12 +207,12 @@ class DeviceBidGenerator:
         self.events_so_far = 0
         self._batch_no = 0
         self._seed = seed
-        self.vocab: list[str] = ["", *_CHANNELS, *_URLS]
-        self._channel_ids = torch.arange(1, 1 + len(_CHANNELS),
-                                         dtype=torch.int32, device=device)
-        self._url_ids = torch.arange(1 + len(_CHANNELS), len(self.vocab),
-                                     dtype=torch.int32, device=device)
+        self._channel_ids, self._url_ids = (
+            torch.tensor([GLOBAL_STRING_DICT.intern(s) for s in strings],
+                         dtype=torch.int32, device=device)
+            for strings in (_CHANNELS, _URLS))
         self._empty = 0
+        self.vocab = _vocab()
 
     def _gen_rows(self, starts: torch.Tensor, keys: torch.Tensor,
                   n: int) -> StreamChunk:
@@ -264,14 +264,14 @@ class DeviceBidGenerator:
                             k * cap)
         return map_tensors(ch, lambda a: a.reshape(k, cap))
 
-    def next_batch(self, k: int) -> StreamChunk:
-        """``k`` full chunks as one [k, chunk_capacity] chunk."""
+    def next_batch(self, k: int) -> ChunkBatch:
+        """One ChunkBatch of ``k`` full chunks, generated on the device."""
         key = threefry.fold_in(threefry.prng_key(self._seed, self.device),
                                self._batch_no)
         self._batch_no += 1
         start = self.events_so_far
         self.events_so_far += k * self.cfg.chunk_capacity
-        return self._gen_impl(start, key, k)
+        return ChunkBatch(self._gen_impl(start, key, k))
 
     def chunk_fn(self):
         """``(start_event_id, key) -> StreamChunk``: ONE chunk of
@@ -290,6 +290,12 @@ class DeviceBidGenerator:
             return self._gen_rows(start, key, cap)
 
         return fn
+
+
+def _vocab() -> list[str]:
+    """The strings of ``GLOBAL_STRING_DICT``, indexed by id."""
+    return [GLOBAL_STRING_DICT.lookup(i)
+            for i in range(len(GLOBAL_STRING_DICT))]
 
 
 def _one_start(start, device) -> torch.Tensor:

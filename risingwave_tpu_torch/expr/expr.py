@@ -90,7 +90,7 @@ def call(name: str, *args: Expr) -> FunctionCall:
     if any(a.type.is_string for a in args) and name not in (
             "equal", "not_equal", "is_null", "is_not_null"):
         raise NotImplementedError(
-            f"{name} over VARCHAR: the string dictionary is not ported yet")
+            f"{name} over VARCHAR: string functions are not ported yet")
     _, infer = _REGISTRY[name]
     return FunctionCall(name, tuple(args), infer([a.type for a in args]))
 

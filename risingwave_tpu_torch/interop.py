@@ -6,8 +6,8 @@ and PRNG keys into this package's
 tensors on a given device. The reference
 objects arrive as nested numpy arrays under the JAX field names: either the
 flax dataclasses with numpy leaves (``jax.tree_util.tree_map(np.asarray,
-state)``) or plain mappings. Nothing of JAX is imported here. Fields that the
-port does not keep yet (checkpoint marks, LRU stamps) are dropped.
+state)``) or plain mappings. Nothing of JAX is imported here. The agg and
+join states carry their checkpoint marks and LRU stamps across too.
 """
 
 from __future__ import annotations
@@ -56,7 +56,9 @@ def agg_state_from_jax(state: Any, device=DEFAULT_DEVICE) -> AggState:
         lanes=[_tensor(a, device) for a in _get(state, "lanes")],
         prev_lanes=[_tensor(a, device) for a in _get(state, "prev_lanes")],
         dirty=_tensor(_get(state, "dirty"), device),
-        overflow=_tensor(_get(state, "overflow"), device))
+        ckpt_dirty=_tensor(_get(state, "ckpt_dirty"), device),
+        overflow=_tensor(_get(state, "overflow"), device),
+        last_used=_tensor(_get(state, "last_used"), device))
 
 
 def join_side_from_jax(side: Any, device=DEFAULT_DEVICE) -> JoinSideState:
@@ -67,6 +69,8 @@ def join_side_from_jax(side: Any, device=DEFAULT_DEVICE) -> JoinSideState:
         occupied=_tensor(_get(side, "occupied"), device),
         tomb=_tensor(_get(side, "tomb"), device),
         degree=_tensor(_get(side, "degree"), device),
+        ckpt_dirty=_tensor(_get(side, "ckpt_dirty"), device),
+        lru=_tensor(_get(side, "lru"), device),
         ht_overflow=_tensor(_get(side, "ht_overflow"), device),
         lane_overflow=_tensor(_get(side, "lane_overflow"), device),
         inconsistent=_tensor(_get(side, "inconsistent"), device))
@@ -91,7 +95,7 @@ def session_state_from_jax(state: Any, device=DEFAULT_DEVICE
 
 def q3_state_from_jax(state: Any, device=DEFAULT_DEVICE) -> stream_q3.Q3State:
     """The reference's ``Q3State`` with numpy leaves, or its
-    ``export_host`` payload (the agg's checkpoint and LRU marks dropped)."""
+    ``export_host`` payload."""
     return stream_q3.state_from_host(state, device)
 
 

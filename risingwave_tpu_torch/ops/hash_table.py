@@ -68,16 +68,15 @@ def ht_new(key_types: Sequence, capacity: int,
     )
 
 
-def mark(flags: torch.Tensor, idx: torch.Tensor) -> None:
-    """``flags[idx] = True`` in place, dropping ``idx == len(flags)`` (the
-    reference's ``.at[idx].set(True, mode="drop")``). Every write is True,
-    so duplicate indices cannot race."""
-    hit = torch.zeros(flags.shape[0] + 1, dtype=torch.bool,
-                      device=flags.device)
+def hit_mask(idx: torch.Tensor, n: int) -> torch.Tensor:
+    """bool[n], True at each of ``idx`` (entries equal to ``n`` are dropped:
+    the reference's ``.at[idx].set(True, mode="drop")`` into zeros). Every
+    write is True, so duplicate indices cannot race."""
+    hit = torch.zeros(n + 1, dtype=torch.bool, device=idx.device)
     # index_fill_ takes the scalar as a kernel argument; ``hit[idx] = True``
     # would copy it to the card first, a host sync
     hit.index_fill_(0, idx, True)
-    flags |= hit[:-1]
+    return hit[:-1]
 
 
 def set_where(target: torch.Tensor, valid: torch.Tensor, idx: torch.Tensor,
@@ -90,14 +89,27 @@ def set_where(target: torch.Tensor, valid: torch.Tensor, idx: torch.Tensor,
     target[idx[rows]] = values
 
 
+_BITS_OF_SIZE = {1: torch.uint8, 2: torch.int16, 4: torch.int32,
+                 8: torch.int64}
+
+
 def set_rows(target: torch.Tensor, pos: torch.Tensor, keep: torch.Tensor,
-             values: torch.Tensor) -> None:
-    """``target[pos[keep]] = values[keep]`` in place for an int64
-    ``target``, without a host sync. Kept positions must be distinct and in
-    range; every other row adds 0 to a cell of its own."""
-    own = torch.arange(pos.shape[0], device=pos.device) % target.shape[0]
+             values) -> None:
+    """``target[pos[keep]] = values[keep]`` in place, without a host sync,
+    for a 1-D ``target`` of any fixed-width dtype (``values`` may be a
+    scalar). Kept positions must be distinct and in range; every other row
+    adds 0 to a cell of its own. The write adds the difference of the bit
+    patterns as integers of the target's width, which wraps, so each value
+    lands bit for bit."""
+    bits = _BITS_OF_SIZE[target.element_size()]
+    t = target.view(bits)
+    if not isinstance(values, torch.Tensor):
+        values = torch.full(pos.shape, values, dtype=target.dtype,
+                            device=pos.device)
+    v = values.to(target.dtype).view(bits)
+    own = torch.arange(pos.shape[0], device=pos.device) % t.shape[0]
     idx = torch.where(keep, pos, own)
-    target.index_add_(0, idx, torch.where(keep, values - target[idx], 0))
+    t.index_add_(0, idx, torch.where(keep, v - t[idx], 0))
 
 
 def _keys_equal_at(table: DeviceHashTable, cand: torch.Tensor,

@@ -17,9 +17,12 @@ rank/total counts of kernel B1 (ops/rank_totals.py). Outputs land in an
 row; lane 2W = the null-padded or self row) that flattens into one
 visibility-masked chunk for ``gather_units_window``.
 
-Join-key NULLs never match (SQL semantics). The state is updated in place;
-callers that must rewind take a ``clone()`` first. Checkpoint marks, LRU
-stamps, state cleaning and eviction are not ported yet.
+Join-key NULLs never match (SQL semantics). The state is updated in place
+and a pass reads nothing back to the host; callers that must rewind take a
+``clone()`` first. Each side also keeps a ``ckpt_dirty`` mark per row (rows
+changed since the last checkpoint) and an LRU stamp per key, and has its
+watermark cleaning (``clean_side_below``), rebuild (``compact_side``) and
+cold-tier eviction (``join_evict_plan``, ``apply_evict_side``).
 """
 
 from __future__ import annotations
@@ -36,8 +39,10 @@ from ..common.chunk import (
     StreamChunk,
 )
 from ..common.types import Schema
+from .grouped_agg import stamps
 from .hash_table import (
-    DeviceHashTable, ht_lookup, ht_lookup_or_insert, ht_new, set_where,
+    DeviceHashTable, ht_lookup, ht_lookup_or_insert, ht_new, scatter_reduce,
+    set_rows, set_where,
 )
 from .rank_totals import rank_totals
 
@@ -81,6 +86,8 @@ class JoinSideState:
     occupied: torch.Tensor              # bool[cap, W]
     tomb: torch.Tensor                  # bool[cap, W] — deleted since ckpt
     degree: torch.Tensor                # int32[cap, W] — opposite matches
+    ckpt_dirty: torch.Tensor            # bool[cap, W] — changed since ckpt
+    lru: torch.Tensor                   # int32[cap] — key's last-touch step
     ht_overflow: torch.Tensor           # bool scalar, sticky: key table full
     lane_overflow: torch.Tensor         # bool scalar, sticky: bucket full
     inconsistent: torch.Tensor          # bool scalar, sticky
@@ -90,11 +97,9 @@ class JoinSideState:
             ht=self.ht.clone(),
             row_data=tuple(t.clone() for t in self.row_data),
             row_mask=tuple(t.clone() for t in self.row_mask),
-            occupied=self.occupied.clone(), tomb=self.tomb.clone(),
-            degree=self.degree.clone(),
-            ht_overflow=self.ht_overflow.clone(),
-            lane_overflow=self.lane_overflow.clone(),
-            inconsistent=self.inconsistent.clone())
+            **{f: getattr(self, f).clone() for f in (
+                "occupied", "tomb", "degree", "ckpt_dirty", "lru",
+                "ht_overflow", "lane_overflow", "inconsistent")})
 
 
 @dataclasses.dataclass
@@ -162,7 +167,8 @@ class JoinCore:
             row_data=tuple(z(f.type.dtype) for f in schema),
             row_mask=tuple(z(torch.bool) for _ in schema),
             occupied=z(torch.bool), tomb=z(torch.bool),
-            degree=z(torch.int32),
+            degree=z(torch.int32), ckpt_dirty=z(torch.bool),
+            lru=torch.zeros(cap, dtype=torch.int32, device=dev),
             ht_overflow=_bool(dev), lane_overflow=_bool(dev),
             inconsistent=_bool(dev))
 
@@ -174,7 +180,7 @@ class JoinCore:
     # -- the step --------------------------------------------------------------
 
     def apply_chunk(self, state: JoinState, chunk: StreamChunk, *,
-                    side: str):
+                    side: str, step=None, passes=None):
         """Join one chunk arriving on ``side`` (state updated in place);
         returns (state, big_chunk).
 
@@ -182,16 +188,25 @@ class JoinCore:
         before inserts) and is mostly invisible; compact it with
         ``gather_units_window`` before sending downstream. A pass with no
         rows is skipped, as the reference's ``lax.cond`` skips it; its
-        invisible grid would add no unit."""
+        invisible grid would add no unit. ``passes``: the host's
+        (any delete, any insert) for this chunk (``pass_flags``), read here
+        from the device when None; given, the step reads nothing back.
+
+        ``step``: the LRU stamp (None: no tracking). The own side's key
+        slot and every probed opposite-side slot are stamped, so the two
+        sides' stamps for one key value stay equal: eviction relies on it
+        to take a key from BOTH arenas."""
         dels = (chunk.ops == OP_DELETE) | (chunk.ops == OP_UPDATE_DELETE)
         is_del = chunk.vis & dels
         is_ins = chunk.vis & ~dels
-        any_del, any_ins = torch.stack([is_del.any(), is_ins.any()]).tolist()
+        if passes is None:
+            passes = torch.stack([is_del.any(), is_ins.any()]).tolist()
+        any_del, any_ins = passes
         outs = []
         if any_del:
-            outs.append(self._pass(state, chunk, is_del, False, side))
+            outs.append(self._pass(state, chunk, is_del, False, side, step))
         if any_ins:
-            outs.append(self._pass(state, chunk, is_ins, True, side))
+            outs.append(self._pass(state, chunk, is_ins, True, side, step))
         if not outs:
             outs.append(self._empty_out(chunk.capacity, chunk.device))
         ops = torch.cat([o[0].reshape(-1) for o in outs])
@@ -239,7 +254,7 @@ class JoinCore:
         return hit.to(torch.uint8).argmax(1), hit.any(1)
 
     def _pass(self, state: JoinState, chunk: StreamChunk, sel: torch.Tensor,
-              is_insert: bool, side: str):
+              is_insert: bool, side: str, step=None):
         cap, W = self.capacity, self.W
         N = chunk.capacity
         dev = chunk.device
@@ -281,6 +296,8 @@ class JoinCore:
         g = torch.where(matches, bs[:, None] * W + lane_w, cell % (cap * W))
         delta = matches.to(torch.int32) * (1 if is_insert else -1)
         B.degree.view(-1).index_add_(0, g.reshape(-1), delta.reshape(-1))
+        if step is not None:
+            _stamp(B.lru, b_slot, b_found, step)
 
         # ---- own-side arena update
         if is_insert:
@@ -295,14 +312,17 @@ class JoinCore:
             lane, found = self._lane_of_rank(free, a_rank)
             lane_ok = found & a_ok
             f = as_ * W + lane
-            set_where(A.occupied.view(-1), lane_ok, f, True)
+            set_rows(A.occupied.view(-1), f, lane_ok, True)
             for rd, c in zip(A.row_data, chunk.columns):
-                set_where(rd.view(-1), lane_ok, f, c.data)
+                set_rows(rd.view(-1), f, lane_ok, c.data)
             for rm, c in zip(A.row_mask, chunk.columns):
-                set_where(rm.view(-1), lane_ok, f, c.mask)
-            set_where(A.degree.view(-1), lane_ok, f, c_cnt)
+                set_rows(rm.view(-1), f, lane_ok, c.mask)
+            set_rows(A.degree.view(-1), f, lane_ok, c_cnt)
+            set_rows(A.ckpt_dirty.view(-1), f, lane_ok, True)
             A.ht_overflow |= ht_ovf | (sel & (a_slot >= cap)).any()
             A.lane_overflow |= (a_ok & ~lane_ok).any()
+            if step is not None:
+                _stamp(A.lru, a_slot, a_ok, step)
         else:
             a_slot, a_found = ht_lookup(A.ht, a_key_cols, sel)
             as_ = torch.where(a_found, a_slot, torch.zeros_like(a_slot))
@@ -323,9 +343,12 @@ class JoinCore:
             lane, lane_ok = self._lane_of_rank(delmatch, drank)
             f = as_ * W + lane
             # values stay in row_data for the durable-tier delete
-            set_where(A.occupied.view(-1), lane_ok, f, False)
-            set_where(A.tomb.view(-1), lane_ok, f, True)
+            set_rows(A.occupied.view(-1), f, lane_ok, False)
+            set_rows(A.tomb.view(-1), f, lane_ok, True)
+            set_rows(A.ckpt_dirty.view(-1), f, lane_ok, True)
             A.inconsistent |= (sel & ~lane_ok).any()
+            if step is not None:
+                _stamp(A.lru, a_slot, a_found, step)
 
         return self._emit(chunk, sel, is_insert, side, matches, c_cnt, r, t,
                           d0, b_datas, b_masks)
@@ -415,6 +438,127 @@ class JoinCore:
         return ops, vis, tuple(cols)
 
 
+def _stamp(lru: torch.Tensor, slots: torch.Tensor, ok: torch.Tensor,
+           step) -> None:
+    """``lru[slots[ok]] = max(lru, step)`` in place, with no host sync."""
+    idx = torch.where(ok, slots, torch.full_like(slots, lru.shape[0]))
+    scatter_reduce(lru, idx, stamps(step, idx.shape[0], idx.device), "max")
+
+
+def pass_flags(chunks: StreamChunk) -> list:
+    """(any delete, any insert) per chunk of a [K, C] batch, read to the
+    host in one transfer: the ``passes`` argument of ``apply_chunk``."""
+    dels = (chunks.ops == OP_DELETE) | (chunks.ops == OP_UPDATE_DELETE)
+    return torch.stack([(chunks.vis & dels).any(-1),
+                        (chunks.vis & ~dels).any(-1)], -1).tolist()
+
+
+def clean_side_below(st: JoinSideState, col_idx: int,
+                     threshold) -> JoinSideState:
+    """Watermark state cleaning (in place): free the rows whose ``col_idx``
+    value is below ``threshold``. Freed lanes become tombstones with
+    ``ckpt_dirty`` set, so the next checkpoint writes their deletes;
+    ``compact_side`` afterwards reclaims the key slots. Opposite-side
+    degrees are not adjusted: by the watermark's contract a cleaned row
+    can never match again."""
+    cleaned = (st.occupied & st.row_mask[col_idx]
+               & (st.row_data[col_idx] < threshold))
+    st.occupied &= ~cleaned
+    st.tomb |= cleaned
+    st.ckpt_dirty |= cleaned
+    return st
+
+
+def compact_side(core: JoinCore, old: JoinSideState, schema: Schema,
+                 key_idx: Sequence[int]) -> JoinSideState:
+    """A new side whose key table holds only the keys with live or
+    tombstoned rows, inserted in slot order, with the bucket tensors moved
+    by the slot remap (open-addressing slots cannot be freed in place).
+    Run after the checkpoint cleared the tombstones. ``old`` is not
+    written."""
+    cap, W = core.capacity, core.W
+    dev = old.occupied.device
+    key_types = tuple(schema[i].type for i in key_idx)
+    key_live = old.ht.occupied & (old.occupied | old.tomb).any(1)
+    key_cols = [Column(kd, km)
+                for kd, km in zip(old.ht.key_data, old.ht.key_mask)]
+    ht, slots, _, rebuild_ovf = ht_lookup_or_insert(
+        ht_new(key_types, cap, dev), key_cols, key_live)
+    rows = (key_live & (slots < cap)).nonzero().squeeze(1)
+    dst = slots[rows]
+
+    def move(arr: torch.Tensor) -> torch.Tensor:
+        out = torch.zeros_like(arr)
+        out[dst] = arr[rows]
+        return out
+
+    return JoinSideState(
+        ht=ht,
+        row_data=tuple(move(rd) for rd in old.row_data),
+        row_mask=tuple(move(rm) for rm in old.row_mask),
+        occupied=move(old.occupied), tomb=move(old.tomb),
+        degree=move(old.degree), ckpt_dirty=move(old.ckpt_dirty),
+        lru=move(old.lru),
+        # a key that exhausts probing in the rebuild would lose its bucket:
+        # surface it
+        ht_overflow=old.ht_overflow | rebuild_ovf,
+        lane_overflow=old.lane_overflow.clone(),
+        inconsistent=old.inconsistent.clone())
+
+
+def _side_evictable_keys(st: JoinSideState) -> torch.Tensor:
+    """bool[cap]: key slots with a live row and no NULL key column (their
+    rows could not be faulted back by key lookup, so they stay resident
+    and do not count toward the budget)."""
+    live = st.ht.occupied & st.occupied.any(1)
+    for km in st.ht.key_mask:
+        live = live & km
+    return live
+
+
+def join_evict_plan(state: JoinState, keep: int):
+    """The cold keys to evict from BOTH arenas so about ``keep`` of the
+    hottest remain per side. The two sides' stamps for one key value are
+    kept equal by ``apply_chunk(step=...)``, so one threshold, the larger
+    of the two sides', names the same key set on both. Returns (mask_l
+    bool[cap], mask_r bool[cap], packed int64[4] = [n_evict_l, n_evict_r,
+    n_live_l, n_live_r])."""
+    cap = state.left.lru.shape[0]
+
+    def thr_of(st):
+        live = _side_evictable_keys(st)
+        n_live = live.sum()
+        key = torch.where(live, st.lru,
+                          torch.full_like(st.lru, torch.iinfo(torch.int32).max))
+        skey = torch.sort(key).values
+        k = torch.clamp(n_live - keep, 0, cap - 1)
+        thr = torch.where(k > 0, skey[torch.clamp_min(k - 1, 0)],
+                          torch.full_like(skey[0], -1))
+        return thr, n_live, live
+
+    thr_l, nl, live_l = thr_of(state.left)
+    thr_r, nr, live_r = thr_of(state.right)
+    thr = torch.maximum(thr_l, thr_r)
+    mask_l = live_l & (state.left.lru <= thr)
+    mask_r = live_r & (state.right.lru <= thr)
+    packed = torch.stack([mask_l.sum(), mask_r.sum(), nl, nr])
+    return mask_l, mask_r, packed
+
+
+def apply_evict_side(st: JoinSideState, mask: torch.Tensor) -> JoinSideState:
+    """Clear the evicted keys' buckets (in place) without tombstones or
+    dirty marks: the durable rows this barrier's checkpoint wrote are the
+    cold copies. Call after the checkpoint cleared tomb/ckpt_dirty and
+    before ``compact_side``."""
+    m2 = mask[:, None]
+    st.occupied &= ~m2
+    for rm in st.row_mask:
+        rm &= ~m2
+    st.degree.masked_fill_(m2, 0)
+    st.lru.masked_fill_(mask, 0)
+    return st
+
+
 def import_side(core: JoinCore, old: JoinSideState, schema: Schema,
                 key_idx: Sequence[int]) -> JoinSideState:
     """Re-layout one side's state into ``core``'s (bigger) geometry.
@@ -438,9 +582,11 @@ def import_side(core: JoinCore, old: JoinSideState, schema: Schema,
     occupied = pad(old.occupied)
     tomb = pad(old.tomb)
     degree = pad(old.degree, 0)
+    ckpt_dirty = pad(old.ckpt_dirty)
 
     if cap == old_cap:
         ht = old.ht
+        lru = old.lru.clone()
 
         def move(padded, fill):
             return padded
@@ -454,9 +600,12 @@ def import_side(core: JoinCore, old: JoinSideState, schema: Schema,
             raise RuntimeError("rehash overflow")
 
         def move(padded, fill):
-            out = torch.full((cap, W), fill, dtype=padded.dtype, device=dev)
+            out = torch.full(((cap, W) if padded.dim() == 2 else (cap,)),
+                             fill, dtype=padded.dtype, device=dev)
             set_where(out, old.ht.occupied, new_slots, padded)
             return out
+
+        lru = move(old.lru, 0)
 
     return JoinSideState(
         ht=ht,
@@ -465,6 +614,8 @@ def import_side(core: JoinCore, old: JoinSideState, schema: Schema,
         occupied=move(occupied, False),
         tomb=move(tomb, False),
         degree=move(degree, 0),
+        ckpt_dirty=move(ckpt_dirty, False),
+        lru=lru,
         ht_overflow=_bool(dev), lane_overflow=_bool(dev),
         inconsistent=old.inconsistent.clone())
 

@@ -248,7 +248,9 @@ class Q3Core:
                       "occupied": host(agg.table.occupied)},
             "lanes": [host(a) for a in agg.lanes],
             "prev_lanes": [host(a) for a in agg.prev_lanes],
-            "dirty": host(agg.dirty), "overflow": host(agg.overflow)}
+            "dirty": host(agg.dirty), "ckpt_dirty": host(agg.ckpt_dirty),
+            "overflow": host(agg.overflow),
+            "last_used": host(agg.last_used)}
         return out
 
     def import_host(self, payload) -> Q3State:
@@ -260,8 +262,8 @@ class Q3Core:
 def state_from_host(payload, device) -> Q3State:
     """A fresh state on ``device`` from host arrays: an ``export_host``
     payload (``orders_*`` entries, ``agg`` with the agg's fields) or an
-    object with the state's attributes. The reference agg's checkpoint and
-    LRU marks are dropped."""
+    object with the state's attributes, the agg's checkpoint and LRU marks
+    included."""
     def get(obj, name):
         return obj[name] if isinstance(obj, Mapping) else getattr(obj, name)
 
@@ -287,5 +289,7 @@ def state_from_host(payload, device) -> Q3State:
                      lanes=[t(a) for a in get(agg, "lanes")],
                      prev_lanes=[t(a) for a in get(agg, "prev_lanes")],
                      dirty=t(get(agg, "dirty")),
-                     overflow=t(get(agg, "overflow"))),
+                     ckpt_dirty=t(get(agg, "ckpt_dirty")),
+                     overflow=t(get(agg, "overflow")),
+                     last_used=t(get(agg, "last_used"))),
         **{f: t(get(payload, f)) for f in FIELDS})

@@ -12,8 +12,8 @@ from __future__ import annotations
 import asyncio
 from typing import AsyncIterator, Hashable, Mapping
 
-from ..common.chunk import StreamChunk
-from .executor import Executor, unsupported_message
+from ..common.chunk import ChunkBatch, StreamChunk
+from .executor import Executor
 from .message import Barrier, Watermark
 
 
@@ -21,9 +21,10 @@ async def align_streams(
         inputs: Mapping[Hashable, Executor]) -> AsyncIterator[tuple]:
     """Align barriers across named inputs.
 
-    Yields ("chunk", name, chunk) / ("watermark", name, wm) /
-    ("barrier", barrier) events; terminates after a stop barrier or when all
-    inputs are exhausted."""
+    Yields ("chunk", name, chunk) / ("batch", name, chunk_batch) /
+    ("watermark", name, wm) / ("barrier", barrier) events; terminates after
+    a stop barrier or when all inputs are exhausted. A ChunkBatch goes on
+    whole, for the consumer's batched step."""
     names = list(inputs)
     its = {s: inputs[s].execute().__aiter__() for s in names}
     pending: dict = {}
@@ -54,10 +55,10 @@ async def align_streams(
                     held_barrier[s] = msg
                 elif isinstance(msg, StreamChunk):
                     yield ("chunk", s, msg)
+                elif isinstance(msg, ChunkBatch):
+                    yield ("batch", s, msg)
                 elif isinstance(msg, Watermark):
                     yield ("watermark", s, msg)
-                else:
-                    raise unsupported_message(msg)
             live = [s for s in names if s not in finished]
             if live and all(s in held_barrier for s in live):
                 barriers = [held_barrier[s] for s in live]

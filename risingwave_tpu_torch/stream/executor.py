@@ -11,16 +11,9 @@ from __future__ import annotations
 
 from typing import AsyncIterator
 
-from ..common.chunk import StreamChunk
+from ..common.chunk import ChunkBatch, StreamChunk
 from ..common.types import Schema
 from .message import Barrier, Message, Watermark
-
-
-def unsupported_message(msg) -> NotImplementedError:
-    """The error for a message this slice does not take (a ChunkBatch)."""
-    return NotImplementedError(
-        f"{type(msg).__name__} messages: batched (ChunkBatch) ingest is not "
-        "ported yet; send StreamChunks")
 
 
 class Executor:
@@ -35,8 +28,8 @@ class Executor:
 
 class SingleInputExecutor(Executor):
     """Common shape: transform one upstream, pass barriers/watermarks
-    through. Subclasses override ``map_chunk`` (1→0..n chunks) and
-    optionally ``on_barrier`` (flush state, emit pending output *before* the
+    through. Subclasses override ``map_chunk`` (1→0..n chunks), optionally
+    ``map_chunk_batch`` and ``on_barrier`` (flush state, emit pending output *before* the
     barrier)."""
 
     def __init__(self, input: Executor):
@@ -44,6 +37,14 @@ class SingleInputExecutor(Executor):
 
     async def map_chunk(self, chunk: StreamChunk):
         yield chunk
+
+    async def map_chunk_batch(self, batch: ChunkBatch):
+        """Batched ingest. The default runs the chunks one by one, which is
+        right for every executor; an executor overrides it with a step
+        over the whole batch where throughput matters."""
+        for i in range(batch.num_chunks):
+            async for out in self.map_chunk(batch.at(i)):
+                yield out
 
     async def on_barrier(self, barrier: Barrier):
         if False:  # pragma: no cover - async generator shape
@@ -57,6 +58,9 @@ class SingleInputExecutor(Executor):
             if isinstance(msg, StreamChunk):
                 async for out in self.map_chunk(msg):
                     yield out
+            elif isinstance(msg, ChunkBatch):
+                async for out in self.map_chunk_batch(msg):
+                    yield out
             elif isinstance(msg, Barrier):
                 outs = [out async for out in self.on_barrier(msg)]
                 for out in outs:
@@ -67,5 +71,3 @@ class SingleInputExecutor(Executor):
             elif isinstance(msg, Watermark):
                 async for out in self.on_watermark(msg):
                     yield out
-            else:
-                raise unsupported_message(msg)

@@ -3,6 +3,10 @@
 Counterparts of ``risingwave_tpu/stream/project.py``. Filter keeps update
 pairs consistent as the reference does: if a filter drops one row of a
 U-/U+ pair, the other degrades to a plain Delete/Insert.
+
+Both take a ChunkBatch in one step: the expressions are elementwise, so they
+run once over the flat [K*C] view of the batch's columns, and the result is
+reshaped back to [K, C] (the reference ``vmap``s its step over the batch).
 """
 
 from __future__ import annotations
@@ -12,7 +16,8 @@ from typing import Sequence
 import torch
 
 from ..common.chunk import (
-    OP_DELETE, OP_INSERT, OP_UPDATE_DELETE, OP_UPDATE_INSERT, StreamChunk,
+    OP_DELETE, OP_INSERT, OP_UPDATE_DELETE, OP_UPDATE_INSERT, ChunkBatch,
+    StreamChunk, flatten_shards, map_tensors,
 )
 from ..common.types import Field, Schema
 from ..expr.expr import Expr, FunctionCall, InputRef, Literal
@@ -63,6 +68,12 @@ class ProjectExecutor(SingleInputExecutor):
     async def map_chunk(self, chunk: StreamChunk):
         yield chunk.with_columns(tuple(e.eval(chunk) for e in self.exprs))
 
+    async def map_chunk_batch(self, batch: ChunkBatch):
+        k, c = batch.num_chunks, batch.chunk_capacity
+        flat = flatten_shards(batch.chunk)
+        out = flat.with_columns(tuple(e.eval(flat) for e in self.exprs))
+        yield ChunkBatch(map_tensors(out, lambda a: a.reshape(k, c)))
+
     async def on_watermark(self, watermark: Watermark):
         for i, e in enumerate(self.exprs):
             v = derive_watermark(e, watermark)
@@ -78,16 +89,30 @@ class FilterExecutor(SingleInputExecutor):
         self.schema = input.schema
         self.predicate = predicate
 
-    async def map_chunk(self, chunk: StreamChunk):
+    def _keep(self, chunk: StreamChunk) -> torch.Tensor:
         cond = self.predicate.eval(chunk)
-        keep = cond.data & cond.mask  # NULL -> filtered out (SQL WHERE)
+        return cond.data & cond.mask  # NULL -> filtered out (SQL WHERE)
+
+    @staticmethod
+    def _filtered(chunk: StreamChunk, keep: torch.Tensor) -> StreamChunk:
+        """``chunk`` with ``keep`` applied along its last axis (rows of a
+        chunk, or of each chunk of a batch): a U- or U+ whose partner is
+        dropped degrades to a Delete or Insert."""
         ops = chunk.ops
         is_ud = ops == OP_UPDATE_DELETE
         is_ui = ops == OP_UPDATE_INSERT
-        partner_kept = torch.roll(keep, -1)       # U-: its U+ follows
-        partner_kept_prev = torch.roll(keep, 1)   # U+: its U- precedes
+        partner_kept = torch.roll(keep, -1, -1)       # U-: its U+ follows
+        partner_kept_prev = torch.roll(keep, 1, -1)   # U+: its U- precedes
         new_ops = torch.where(
             is_ud & ~partner_kept, torch.full_like(ops, OP_DELETE),
             torch.where(is_ui & ~partner_kept_prev,
                         torch.full_like(ops, OP_INSERT), ops))
-        yield chunk.replace(ops=new_ops, vis=chunk.vis & keep)
+        return chunk.replace(ops=new_ops, vis=chunk.vis & keep)
+
+    async def map_chunk(self, chunk: StreamChunk):
+        yield self._filtered(chunk, self._keep(chunk))
+
+    async def map_chunk_batch(self, batch: ChunkBatch):
+        keep = self._keep(flatten_shards(batch.chunk))
+        yield ChunkBatch(self._filtered(batch.chunk,
+                                        keep.reshape(batch.chunk.vis.shape)))

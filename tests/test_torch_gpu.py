@@ -2,9 +2,10 @@
 against their plain versions on the card (kernel B3 on every
 ``chip_smoke.HASH_CASES`` input, find-or-insert on both of its paths), the
 q7 pipeline and the fused q7, q8 and q3 epochs on the card against the same
-runs on the CPU, the fused q5, q7, q8 and q3 epoch bodies with synchronizing
-CUDA calls made errors, and a non-integer float64 sum lane on the card
-against the CPU. They skip where no card is present; run them on the card
+runs on the CPU, the fused q5, q7, q8 and q3 epoch bodies and the batched
+(ChunkBatch) ingest of HashAgg and HashJoin with synchronizing CUDA calls
+made errors, eviction with fault-in on the card against the CPU, and a
+non-integer float64 sum lane on the card against the CPU. They skip where no card is present; run them on the card
 with ``python -m pytest tests/test_torch_gpu.py -m gpu``.
 """
 
@@ -271,3 +272,95 @@ def _assert_payload_equal(a, b):
             _assert_payload_equal(x, y)
     else:
         np.testing.assert_array_equal(a, b)
+
+
+def test_batched_ingest_makes_no_host_sync(cuda):
+    """The batched steps read nothing back to the host: one epoch of bids
+    through the q5 pipeline's Project and HashAgg ``map_chunk_batch``, and
+    one sub-batch of probe chunks applied by the q7 join (its passes read
+    beforehand for the whole batch, its stats after); the join's output
+    then equals numpy q7 over the same bids."""
+    from risingwave_tpu_torch.common import make_chunk
+    from risingwave_tpu_torch.ops.join_state import pass_flags
+    k = 8
+    gen = cs.bench_gen(cuda)
+    agg = cs.q5_bench_pipeline(cs.DeviceBidSource(gen, [], 1), cuda)
+    batch = gen.next_batch(k)
+    asyncio.run(cs.sync_free_batch(agg, batch))
+    assert int(agg.state.lanes[0].sum()) == k * cs.CHUNK
+
+    join = cs.q7_bench_join(cs.DeviceBidSource(gen, [], 1),
+                            cs.DeviceBidSource(gen, [], 1), cuda)
+    probe = asyncio.run(_first(join.left.map_chunk_batch(batch)))
+    auction, price, ts = (batch.chunk.columns[j].data.reshape(-1).cpu()
+                          .numpy() for j in (0, 2, 5))
+    ws = ts // cs.Q7_WINDOW_US * cs.Q7_WINDOW_US
+    maxes = {}
+    for w, p in zip(ws.tolist(), price.tolist()):
+        maxes[w] = max(maxes.get(w, p), p)
+    build = make_chunk(join.right.schema, sorted(maxes.items()),
+                       capacity=len(maxes), device=cuda)
+    join._stage("right", build, None)
+    passes = pass_flags(probe.chunk)
+    with cs.no_host_sync():
+        for i in range(k):
+            join._stage("left", probe.at(i), None, passes[i])
+    drain = cs.Drain()
+    for out in join._flush_pending():
+        drain.add(out)
+    assert drain.multiset() == cs.q7_expected_cols(auction, price, ts)
+
+
+async def _first(agen):
+    async for x in agen:
+        return x
+
+
+def _eviction_run(device):
+    """An agg and a join under memory budgets (eviction at checkpoints,
+    fault-in of revisited keys) on ``device``: their output rows in order
+    and their evicted key sets."""
+    from risingwave_tpu_torch.common import INT64, Schema, make_chunk
+    from risingwave_tpu_torch.expr import agg, count_star
+    from risingwave_tpu_torch.storage import MemoryStateStore, StateTable
+    from risingwave_tpu_torch.stream import (
+        Barrier, HashAggExecutor, HashJoinExecutor, MockSource,
+    )
+    from risingwave_tpu_torch.stream.hash_agg import agg_state_schema
+    schema = Schema.of(("k", INT64), ("g", INT64), ("v", INT64))
+    store = MemoryStateStore()
+    msgs, rows_r, k = [Barrier.new(1)], [], 0
+    for b in range(8):
+        rows = [(k + i, b * 16 + i, i) for i in range(16)]
+        if b % 3 == 2:
+            rows += [(k + 16 + g, g, 7) for g in range(4)]
+        k += len(rows)
+        msgs += [make_chunk(schema, rows, capacity=32, device=device),
+                 Barrier.new(b + 2, checkpoint=b % 2 == 0)]
+        rows_r.append(rows[::2])
+    calls = [count_star(), agg("sum", 2, INT64), agg("min", 2, INT64)]
+    hagg = HashAggExecutor(
+        MockSource(schema, msgs), [1], calls,
+        state_table=StateTable(store, 1, agg_state_schema([schema[1]], calls),
+                               [0]),
+        table_capacity=256, out_capacity=64, hbm_group_budget=30,
+        device=device)
+    right = [msgs[0]]
+    for b, rows in enumerate(rows_r):
+        right += [make_chunk(schema, rows, capacity=32, device=device),
+                  msgs[2 + 2 * b]]
+    join = HashJoinExecutor(
+        MockSource(schema, msgs), MockSource(schema, right), [1], [1],
+        left_state_table=StateTable(store, 2, schema, [1, 0]),
+        right_state_table=StateTable(store, 3, schema, [1, 0]),
+        key_capacity=64, bucket_width=4, out_capacity=64, hbm_key_budget=16,
+        device=device)
+    return (_ordered_output(hagg), hagg._evicted, _ordered_output(join),
+            join._evicted)
+
+
+def test_eviction_with_fault_in_on_card_equals_cpu(cuda):
+    on_card = _eviction_run("cuda")
+    on_cpu = _eviction_run("cpu")
+    assert on_card == on_cpu
+    assert on_card[1] and on_card[3] and on_card[0] and on_card[2]

@@ -460,19 +460,13 @@ def test_filter_degrades_broken_update_pairs_and_watermarks_pass():
 
 
 def test_unported_arguments_raise():
-    ls = TORCH.schema("k", "a")
-    src = TS.MockSource(ls, [])
-    with pytest.raises(NotImplementedError, match="state_table"):
-        TS.HashAggExecutor(src, [0], [TE.count_star()], state_table=object(),
-                           device="cpu")
-    with pytest.raises(NotImplementedError, match="interval_clean"):
-        TS.HashJoinExecutor(src, src, [0], [0],
-                            interval_clean=[("left", 1, "right", 1, 0)],
-                            device="cpu")
-    with pytest.raises(NotImplementedError, match="ChunkBatch"):
-        async def drive():
-            agg = TS.HashAggExecutor(TS.MockSource(ls, [object()]), [0],
-                                     [TE.count_star()], device="cpu")
-            async for _ in agg.execute():
-                pass
-        asyncio.run(drive())
+    """What the port still rejects: MIN/MAX over VARCHAR and casts to or
+    from VARCHAR (both wait for the string ranks of the next slice)."""
+    with pytest.raises(NotImplementedError, match="VARCHAR"):
+        TE.agg("max", 0, T.VARCHAR)
+    schema = T.Schema.of(("n", T.INT64), ("s", T.VARCHAR))
+    chunk = T.make_chunk(schema, [(1, "a")], capacity=4, device="cpu")
+    for expr in (TE.cast(TE.col(0, T.INT64), T.VARCHAR),
+                 TE.cast(TE.col(1, T.VARCHAR), T.INT64)):
+        with pytest.raises(NotImplementedError, match="VARCHAR"):
+            expr.eval(chunk)
