@@ -53,14 +53,43 @@ Phases (any failure exits non-zero and prints no result line):
      after epoch 2 of 3 and recovered (the join replays both sides through
      kernels B1 and B3): the net output equal to numpy's and the
      uninterrupted run's;
- 13. profiled runs (q7 and q5 executors, one fused q7, q5, q8 and q3
-     epoch): the device's busy share and top kernels; then one JSON line of
-     every kernel: launches on its paths' runs, exact agreement, its time
-     and its plain version's time on the inputs its path gave it, and its
-     bound on an H100 (for B1 also its time and bound summed over every
-     input of the q7 run, with each input's count of keyed rows; B1's and
-     B3's launches on each path's run; B3 on the q5 compaction's input);
- 14. the last line: ``{"ok": true, "device": {...}}``.
+ 13. NEXmark q105 from the host generator (seed 42, one auction chunk per
+     bid chunk, one warm-up and three timed epochs of 16 chunks per
+     source): both sources → RowIdGen → Project → HashJoin (1<<16 keys ×
+     bucket width 2048, which must not grow) → Project → HashAgg(count,
+     1<<19) → Project → TopN(limit 1000, 1<<19) → Materialize; the MV
+     equal to numpy's top 1000 under (count desc, id asc, item_name asc by
+     string); kernel B1's inputs kept, its busiest one checked against the
+     plain version and timed with the kernels, and kernel B3's busiest
+     input at the agg's group table and at the TopN's row set (the call
+     with the most valid rows, the latest of equals); the join arena's
+     bytes, the TopN's fast flushes and refills;
+ 14. NEXmark q102 over the same chunks: the q105 join and agg →
+     DynamicFilter(>=, 1<<19) whose bound is bids → MaterializedAgg(count(*),
+     count(DISTINCT auction)) → Project(divide); the MV equal to numpy's
+     groups whose count is at least floor(bids / distinct auctions); B3's
+     busiest input at the DynamicFilter's row set kept;
+ 15. NEXmark q18: bids → RowIdGen → Project → GroupTopN((bidder, auction),
+     date_time desc, limit 1, WITH TIES, row and group tables 1<<19) →
+     Project → Materialize, the MV equal to numpy's latest bids per group;
+     one more epoch whose batched ingest (RowIdGen, Project, GroupTopN)
+     runs under the sync check; then the four epochs over a StateTable,
+     every barrier a checkpoint, dropped after epoch 2 and recovered
+     through kernel B3, the bids' row ids resuming above the first half's:
+     the MV equal to the uninterrupted run's; checkpoint ms and recovery
+     seconds; B3's busiest inputs at the GroupTopN's row set and group
+     table kept;
+ 16. profiled runs (q7 and q5 executors, two epochs of q105 and q18, one
+     fused q7, q5, q8 and q3 epoch): the device's busy share and top
+     kernels; then one JSON line of every kernel: launches on its paths'
+     runs, exact agreement, its time and its plain version's time on the
+     inputs its path gave it, and its bound on an H100 (for B1 also its
+     time and bound summed over every input of the q7 run, with each
+     input's count of keyed rows, and on q105's busiest input; B1's and
+     B3's launches on each path's run; B3 on the q5 compaction's input and
+     on the five inputs kept in phases 13-15, each also held against the
+     plain version slot for slot on both of its paths);
+ 17. the last line: ``{"ok": true, "device": {...}}``.
 
 It imports nothing of JAX and nothing of the JAX package.
 """
@@ -110,6 +139,18 @@ Q3_ORDERS_CAP = 1 << 17      # bench.py Q3_ORDERS_CAP
 Q3_AGG_CAP = 1 << 17         # bench.py Q3_AGG_CAP
 # q8 and q3: one warm-up epoch and two timed, the bench's 256 + 512 chunks
 Q8_Q3_TIMED_EPOCHS = 2
+# q105, q102 and q18 (host generator, one chunk per source per tick): one
+# warm-up and three timed epochs of 16 chunks per source
+NEX_EPOCHS = 4
+NEX_CHUNKS_PER_EPOCH = 16
+Q105_LIMIT = 1000
+# the join holds every auction and bid: ~12,800 auction ids, the hottest
+# with ~1,560 bids, so it never grows in the timed epochs
+Q105_KEY_CAPACITY = 1 << 16
+Q105_BUCKET_WIDTH = 2048
+Q105_AGG_CAPACITY = 1 << 19      # ~205,000 (id, item_name) groups
+Q105_TOPN_CAPACITY = 1 << 19
+Q18_TABLE_CAPACITY = 1 << 19     # every bid is a row (5 epochs: 327,680)
 # (N, W, ident pattern) — each compared exactly with the plain version;
 # N = 32768 is above what kernel B1 sorts in one block's shared memory;
 # probe_256 and few_257 are chunks whose rows mostly have ident < 0
@@ -119,7 +160,8 @@ RANK_CASES = [(4096, 128, "clustered"), (4000, 128, "clustered"),
               (4096, 128, "interleaved"), (4000, 128, "one_hot_key"),
               (1, 1, "clustered"), (4096, 129, "clustered"),
               (4096, 128, "wide"), (32768, 128, "clustered"),
-              (4096, 128, "probe_256"), (4096, 129, "few_257")]
+              (4096, 128, "probe_256"), (4096, 129, "few_257"),
+              (4096, Q105_BUCKET_WIDTH, "q105")]
 # (nb, W, pattern) — interval_match against its plain version, exactly
 MATCH_CASES = [(Q7_BUCKETS, Q7_LANES, "random"), (1000, 128, "random"),
                (777, 100, "random"), (Q7_BUCKETS, Q7_LANES, "all_occupied"),
@@ -185,6 +227,16 @@ def rank_inputs(n: int, w: int, pattern: str, seed: int, device):
             ident[:k] = 3
         else:
             ident[rng.choice(n, k, replace=False)] = rng.integers(0, 8, k)
+    elif pattern == "q105":
+        # q105's join at its width: 90% of rows on three hot keys whose
+        # buckets hold ~1,500 rows, the rest on 200 keys of ~40 rows
+        hot = rng.random(n) < 0.9
+        ident = np.where(hot, rng.integers(0, 3, n),
+                         rng.integers(3, 203, n)).astype(np.int32)
+        fill = np.where(hot, 0.75, 0.02)[:, None]
+        matches = rng.random((n, w)) < fill
+        return (torch.as_tensor(ident, device=device),
+                torch.as_tensor(matches, device=device))
     else:
         raise ValueError(pattern)
     matches = rng.random((n, w)) < 0.3
@@ -821,11 +873,10 @@ def q7_pipeline(chunks, device):
                             out_capacity=CHUNK, device=device)
 
 
-def run_q7_capturing(chunks, device):
-    """Drive the q7 executor over ``chunks`` with every kernel-B1 input
-    kept: (output multiset, seconds after the warm-up barrier, B1 launches
-    in the run, [(ident, matches), ...] in call order). The launch count is
-    reset just before the run and read just after."""
+@contextlib.contextmanager
+def captured_rank_inputs():
+    """Every kernel-B1 input of the joins run inside the block, kept as
+    (ident, matches) copies in call order in the list it yields."""
     from risingwave_tpu_torch.ops import join_state
     rt_mod = importlib.import_module("risingwave_tpu_torch.ops.rank_totals")
     captured = []
@@ -836,18 +887,82 @@ def run_q7_capturing(chunks, device):
 
     join_state.rank_totals = capturing
     try:
+        yield captured
+    finally:
+        join_state.rank_totals = rt_mod.rank_totals
+
+
+def run_q7_capturing(chunks, device):
+    """Drive the q7 executor over ``chunks`` with every kernel-B1 input
+    kept: (output multiset, seconds after the warm-up barrier, B1 launches
+    in the run, [(ident, matches), ...] in call order). The launch count is
+    reset just before the run and read just after."""
+    rt_mod = importlib.import_module("risingwave_tpu_torch.ops.rank_totals")
+    with captured_rank_inputs() as captured:
         q7 = q7_pipeline(chunks, device)
         rt_mod.rank_totals.launches = 0
         got, secs = asyncio.run(drive(q7, 2))
         launches = rt_mod.rank_totals.launches
-    finally:
-        join_state.rank_totals = rt_mod.rank_totals
     return got, secs, launches, captured
 
 
 def keyed_rows(captured) -> list[int]:
     """Rows with ident >= 0 in each captured B1 input."""
     return [int((ident >= 0).sum()) for ident, _ in captured]
+
+
+@contextlib.contextmanager
+def captured_probe_inputs(sites: dict):
+    """Kernel B3's busiest find-or-insert input at each call site run inside
+    the block: ``sites`` maps a label to the module whose
+    ``ht_lookup_or_insert`` is watched. The dict it yields receives, per
+    label, (table, key columns, valid) as they were just before the call
+    with the most valid rows (the latest of equals, so the fullest table).
+    Every call keeps its candidate on the card with ``torch.where``, so the
+    watch makes no host sync; the choice among chunk shapes is read once,
+    after the block."""
+    from risingwave_tpu_torch.common import Column
+    from risingwave_tpu_torch.ops import hash_table as ht
+    mods = {label: importlib.import_module(m) for label, m in sites.items()}
+    best: dict = {}      # (label, shape signature) -> [count, tensors]
+    found: dict = {}
+
+    def watch(label):
+        def capturing(table, cols, valid, *args, **kw):
+            sig = (label, table.capacity, valid.shape[0],
+                   tuple(c.data.dtype for c in cols))
+            now = ([*table.key_data, *table.key_mask, table.occupied]
+                   + [t for c in cols for t in (c.data, c.mask)] + [valid])
+            count = valid.sum()
+            if sig not in best:
+                best[sig] = [count, [t.clone() for t in now]]
+            else:
+                kept = best[sig]
+                better = count >= kept[0]
+                kept[0] = torch.where(better, count, kept[0])
+                for dst, src in zip(kept[1], now):
+                    dst.copy_(torch.where(better, src, dst))
+            return ht.ht_lookup_or_insert(table, cols, valid, *args, **kw)
+        return capturing
+
+    for label, mod in mods.items():
+        mod.ht_lookup_or_insert = watch(label)
+    try:
+        yield found
+    finally:
+        for mod in mods.values():
+            mod.ht_lookup_or_insert = ht.ht_lookup_or_insert
+    for label in sites:
+        sigs = [k for k in best if k[0] == label]
+        if not sigs:
+            continue
+        sig = max(sigs, key=lambda k: int(best[k][0]))
+        ts, k = best[sig][1], len(sig[3])
+        table = ht.DeviceHashTable(tuple(ts[:k]), tuple(ts[k:2 * k]),
+                                   ts[2 * k])
+        cols = [Column(ts[2 * k + 1 + 2 * i], ts[2 * k + 2 + 2 * i])
+                for i in range(k)]
+        found[label] = (table, cols, ts[-1])
 
 
 def q7_expected(chunks) -> collections.Counter:
@@ -1688,24 +1803,37 @@ def run_q7_recovery(device, uninterrupted: collections.Counter) -> dict:
 def compact_probe_times(compact_input) -> dict:
     """Kernel B3 on the input of the q5 run's last compaction (every slot
     of the 1<<21 table a row, its live groups valid), into an empty table:
-    slots equal to the plain version's, device times of kernel and plain
-    version, and the bound."""
+    as ``probe_input_times``."""
     from risingwave_tpu_torch.common import INT64, TIMESTAMP
-    from risingwave_tpu_torch.ops.hash_table import (
-        ht_lookup_or_insert, ht_lookup_or_insert_plain, ht_new,
-    )
+    from risingwave_tpu_torch.ops.hash_table import ht_new
     keys, live = compact_input
     empty = ht_new((TIMESTAMP, INT64), Q5_TABLE_CAPACITY, live.device)
-    err, (s0, f0, _) = compare_hash_probe(empty, keys, live, "insert")
-    if err:
-        raise AssertionError(f"hash_probe differs from plain on the compact "
-                             f"input: {err} differences")
-    bound_ms, bound_by = hash_probe_bound(empty, keys, live, s0, f0,
+    return probe_input_times("the compact input", empty, keys, live)
+
+
+def probe_input_times(name: str, table, cols, valid,
+                      paths=("auto",)) -> dict:
+    """Kernel B3's find-or-insert on one input a path gave it: slots, table
+    and flags equal to the plain version's on each of ``paths``, device
+    times of kernel and plain version, and the bound."""
+    from risingwave_tpu_torch.ops.hash_table import (
+        ht_lookup_or_insert, ht_lookup_or_insert_plain,
+    )
+    for path in paths:
+        err, (s0, f0, o0) = compare_hash_probe(table, cols, valid, "insert",
+                                               path)
+        if err:
+            raise AssertionError(f"hash_probe differs from plain on {name}, "
+                                 f"{path} path: {err} differences")
+    bound_ms, bound_by = hash_probe_bound(table, cols, valid, s0, f0,
                                           "insert")
     ms, plain_ms, call_ms = probe_times(
-        lambda: ht_lookup_or_insert(empty.clone(), keys, live),
-        lambda: ht_lookup_or_insert_plain(empty.clone(), keys, live))
-    return {"n": int(live.shape[0]), "live": int(live.sum()), "ms": ms,
+        lambda: ht_lookup_or_insert(table.clone(), cols, valid),
+        lambda: ht_lookup_or_insert_plain(table.clone(), cols, valid))
+    return {"n": int(valid.shape[0]), "live": int(valid.sum()),
+            "cap": table.capacity, "occupied": int(table.occupied.sum()),
+            "new": int(f0.sum()), "overflow": bool(o0),
+            "paths": list(paths), "differences": 0, "ms": ms,
             "plain_ms": plain_ms, "call_ms": call_ms, "bound_ms": bound_ms,
             "bound_by": bound_by}
 
@@ -1736,6 +1864,316 @@ def trace_fused(runner) -> dict:
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     return trace_summary(prof, wall, runner.k * runner.chunk)
+
+
+# ---------------------------------------------------------------------------
+# phases 13-15: NEXmark q105, q102 and q18 over the device row set
+# ---------------------------------------------------------------------------
+
+def nexmark_chunks(table: str, n: int, device, gen=None):
+    """``n`` chunks of CHUNK rows from the host generator (seed 42) of one
+    source leaf, on the card; returns (chunks, generator)."""
+    from risingwave_tpu_torch.connector import NexmarkConfig, NexmarkGenerator
+    if gen is None:
+        gen = NexmarkGenerator(NexmarkConfig(chunk_capacity=CHUNK),
+                               seed=SEED, device=device)
+    fn = {"bid": gen.next_bid_chunk, "auction": gen.next_auction_chunk}
+    return [fn[table]() for _ in range(n)], gen
+
+
+def epoch_source(schema, chunks, first_epoch: int = 1,
+                 checkpoint: bool = False):
+    """A barrier, then per epoch NEX_CHUNKS_PER_EPOCH chunks and a barrier
+    (every barrier a checkpoint with ``checkpoint``)."""
+    from risingwave_tpu_torch.stream import Barrier, MockSource
+    msgs = [Barrier.new(first_epoch, checkpoint=checkpoint)]
+    for i in range(0, len(chunks), NEX_CHUNKS_PER_EPOCH):
+        msgs.extend(chunks[i:i + NEX_CHUNKS_PER_EPOCH])
+        msgs.append(Barrier.new(first_epoch + 1 + i // NEX_CHUNKS_PER_EPOCH,
+                                checkpoint=checkpoint))
+    return MockSource(schema, msgs)
+
+
+def host_cols(chunks, idx) -> list[np.ndarray]:
+    """Numpy columns ``idx`` of every visible row of ``chunks``."""
+    return [np.concatenate([c.columns[i].data[c.vis].cpu().numpy()
+                            for c in chunks]) for i in idx]
+
+
+def tensor_bytes(obj) -> int:
+    """Bytes of every tensor held by a (nested) state dataclass."""
+    import dataclasses
+    if isinstance(obj, torch.Tensor):
+        return obj.numel() * obj.element_size()
+    if isinstance(obj, (list, tuple)):
+        return sum(tensor_bytes(x) for x in obj)
+    if dataclasses.is_dataclass(obj):
+        return sum(tensor_bytes(getattr(obj, f.name))
+                   for f in dataclasses.fields(obj))
+    return 0
+
+
+def q105_counts(auctions, bids) -> dict:
+    """numpy q105/q102 groups: (id, item_name) -> count(b.auction) of the
+    inner join, an auction row's bids counted once per auction row."""
+    from risingwave_tpu_torch.common import GLOBAL_STRING_DICT
+    aid, item = host_cols(auctions, (0, 1))
+    (bid_auction,) = host_cols(bids, (0,))
+    ids, n = np.unique(bid_auction, return_counts=True)
+    n_bid = dict(zip(ids.tolist(), n.tolist()))
+    counts: dict = collections.Counter()
+    for a, it in zip(aid.tolist(), item.tolist()):
+        if a in n_bid:
+            counts[(a, GLOBAL_STRING_DICT.lookup(it))] += n_bid[a]
+    return counts
+
+
+def run_q105(device, auctions, bids) -> dict:
+    """Phase 13: q105 — both sources → RowIdGen → Project → HashJoin → Project
+    → HashAgg(count) → Project → TopN(limit 1000) → Materialize, one
+    warm-up and three timed epochs of 16 chunks per source; the MV equal to
+    numpy's top 1000 under (count desc, id asc, item_name asc by string).
+    Kernel B1's inputs are kept, and kernel B3's busiest input at the
+    agg's group table and at the TopN's row set; the busiest B1 input and
+    the B3 inputs are returned."""
+    rt_mod = importlib.import_module("risingwave_tpu_torch.ops.rank_totals")
+    plan = nexmark_plan("q105", device, auctions, bids)
+    arena = tensor_bytes(plan.join.state)
+    with captured_rank_inputs() as captured, captured_probe_inputs({
+            "q105 HashAgg groups": "risingwave_tpu_torch.ops.grouped_agg",
+            "q105 TopN rows": "risingwave_tpu_torch.ops.row_set",
+    }) as b3_inputs:
+        b3_launches(reset=True)
+        rt_mod.rank_totals.launches = 0
+        _, secs = asyncio.run(drive(plan.mv, 2))
+        b1, b3 = rt_mod.rank_totals.launches, b3_launches()
+    if plan.join.core.W != Q105_BUCKET_WIDTH or \
+            plan.join.core.capacity != Q105_KEY_CAPACITY:
+        raise AssertionError("the q105 join grew: size it larger")
+    counts = q105_counts(auctions, bids)
+    want = sorted(sorted(counts.items(),
+                         key=lambda kv: (-kv[1], kv[0][0], kv[0][1])
+                         )[:Q105_LIMIT])
+    got = sorted(((r[0], r[1]), r[2]) for r in plan.mv.rows())
+    if got != want:
+        raise AssertionError(f"q105 MV differs from numpy's top "
+                             f"{Q105_LIMIT}: {len(set(got) - set(want))} "
+                             f"extra, {len(set(want) - set(got))} missing")
+    keyed = keyed_rows(captured)
+    busiest = max(range(len(captured)), key=lambda i: keyed[i])
+    ident, matches = captured[busiest]
+    timed_rows = 2 * (NEX_EPOCHS - 1) * NEX_CHUNKS_PER_EPOCH * CHUNK
+    return {"groups": len(counts), "mv_rows": len(got),
+            "source_rows_per_s": timed_rows / secs,
+            "bids_per_s": timed_rows / 2 / secs,
+            "key_capacity": plan.join.core.capacity,
+            "bucket_width": plan.join.core.W, "join_arena_bytes": arena,
+            "n_fast_flushes": plan.top_n.n_fast_flushes,
+            "n_refills": plan.top_n.n_refills, "b1_launches": b1,
+            "b3_launches": b3, "b1_calls": len(captured),
+            "b1_busiest_keyed_rows": keyed[busiest],
+            "b1_input": (ident, matches), "b3_inputs": b3_inputs}
+
+
+def run_q102(device, auctions, bids) -> dict:
+    """Phase 14: q102 — the q105 join and agg → DynamicFilter(>=) whose RHS
+    is bids → MaterializedAgg(count(*), count(DISTINCT auction)) →
+    Project(divide); the MV equal to numpy's groups whose count is at least
+    floor(bids / distinct auctions). Kernel B3's busiest input at the
+    DynamicFilter's row set is returned."""
+    from risingwave_tpu_torch.connector import AUCTION_SCHEMA, BID_SCHEMA
+    from risingwave_tpu_torch.storage import MemoryStateStore, StateTable
+    from risingwave_tpu_torch.stream import nexmark_plans as plans
+    rt_mod = importlib.import_module("risingwave_tpu_torch.ops.rank_totals")
+    store = MemoryStateStore()
+    plan = plans.q102(
+        epoch_source(AUCTION_SCHEMA, auctions), epoch_source(BID_SCHEMA, bids),
+        epoch_source(BID_SCHEMA, bids),
+        StateTable(store, 1, plans.q105_schema(), [0, 1]),
+        key_capacity=Q105_KEY_CAPACITY, bucket_width=Q105_BUCKET_WIDTH,
+        agg_capacity=Q105_AGG_CAPACITY, filter_capacity=Q105_AGG_CAPACITY,
+        out_capacity=CHUNK, device=device)
+    with captured_probe_inputs({
+            "q102 DynamicFilter rows": "risingwave_tpu_torch.ops.row_set",
+    }) as b3_inputs:
+        b3_launches(reset=True)
+        rt_mod.rank_totals.launches = 0
+        _, secs = asyncio.run(drive(plan.mv, 2))
+        b1, b3 = rt_mod.rank_totals.launches, b3_launches()
+    counts = q105_counts(auctions, bids)
+    (bid_auction,) = host_cols(bids, (0,))
+    bound = len(bid_auction) // len(np.unique(bid_auction))
+    want = sorted((k, n) for k, n in counts.items() if n >= bound)
+    got = sorted(((r[0], r[1]), r[2]) for r in plan.mv.rows())
+    if got != want or plan.dynamic_filter.bound != bound:
+        raise AssertionError(f"q102 MV differs from numpy's: "
+                             f"{len(set(got) - set(want))} extra, "
+                             f"{len(set(want) - set(got))} missing (bound "
+                             f"{plan.dynamic_filter.bound} vs {bound})")
+    timed_rows = 3 * (NEX_EPOCHS - 1) * NEX_CHUNKS_PER_EPOCH * CHUNK
+    return {"mv_rows": len(got), "bound": bound,
+            "source_rows_per_s": timed_rows / secs,
+            "bids_per_s": (NEX_EPOCHS - 1) * NEX_CHUNKS_PER_EPOCH * CHUNK
+            / secs, "b1_launches": b1, "b3_launches": b3,
+            "b3_inputs": b3_inputs}
+
+
+def q18_expected(bids) -> collections.Counter:
+    """numpy q18: per (bidder, auction) every bid at the latest date_time
+    (ties kept), as (auction, bidder, price, date_time) rows."""
+    auction, bidder, price, ts = host_cols(bids, (0, 1, 2, 5))
+    keys = np.stack([bidder, auction], 1)
+    _, inverse = np.unique(keys, axis=0, return_inverse=True)
+    inverse = inverse.reshape(-1)
+    latest = np.full(inverse.max() + 1, np.iinfo(np.int64).min)
+    np.maximum.at(latest, inverse, ts)
+    hit = ts == latest[inverse]
+    return collections.Counter(zip(auction[hit].tolist(),
+                                   bidder[hit].tolist(),
+                                   price[hit].tolist(), ts[hit].tolist()))
+
+
+def mv_counter(plan) -> collections.Counter:
+    """q18's MV rows without the hidden row id."""
+    return collections.Counter(r[:4] for r in plan.mv.rows())
+
+
+def q18_plan(device, src, store, state_table: bool = False,
+             row_id_start: int = 0):
+    from risingwave_tpu_torch.storage import StateTable
+    from risingwave_tpu_torch.stream import nexmark_plans as plans
+    st = (StateTable(store, 2, plans.q18_schema(), [4]) if state_table
+          else None)
+    return plans.q18(src, StateTable(store, 1, plans.q18_schema(), [4]),
+                     table_capacity=Q18_TABLE_CAPACITY, out_capacity=CHUNK,
+                     state_table=st, row_id_start=row_id_start,
+                     device=device)
+
+
+async def q18_sync_free_epoch(plan, batch, epoch: int) -> None:
+    """One ChunkBatch through q18's RowIdAppend, RowIdGen, Project and
+    GroupTopN batched steps with synchronizing CUDA calls made errors, then
+    the GroupTopN's barrier flush into the MV."""
+    from risingwave_tpu_torch.stream import Barrier
+    top = plan.top_n
+    proj = top.input
+    rowid = proj.input
+    with no_host_sync():
+        async for a in rowid.input.map_chunk_batch(batch):
+            async for b in rowid.map_chunk_batch(a):
+                async for c in proj.map_chunk_batch(b):
+                    async for _ in top.map_chunk_batch(c):
+                        pass
+    named = plan.mv.input
+    async for out in top.on_barrier(Barrier.new(epoch)):
+        async for row in named.map_chunk(out):
+            async for _ in plan.mv.map_chunk(row):
+                pass
+
+
+def run_q18(device) -> dict:
+    """Phase 15: q18 — bids → RowIdGen → Project → GroupTopN((bidder,
+    auction), date_time desc, limit 1, WITH TIES) → Project → Materialize:
+    one warm-up and three timed epochs, the MV equal to numpy's latest bids
+    per group; one more epoch whose batched ingest runs under the sync
+    check; then the same four epochs over a StateTable with every barrier a
+    checkpoint, dropped after epoch 2 and recovered through kernel B3: the
+    MV equal to the uninterrupted run's and numpy's. Kernel B3's busiest
+    inputs at the GroupTopN's row set and group table are returned."""
+    from risingwave_tpu_torch.common import stack_chunks
+    from risingwave_tpu_torch.connector import BID_SCHEMA
+    from risingwave_tpu_torch.storage import MemoryStateStore
+    n = NEX_EPOCHS * NEX_CHUNKS_PER_EPOCH
+    bids, gen = nexmark_chunks("bid", n, device)
+    store = MemoryStateStore()
+    plan = q18_plan(device, epoch_source(BID_SCHEMA, bids), store)
+    with captured_probe_inputs({
+            "q18 GroupTopN rows": "risingwave_tpu_torch.ops.row_set",
+            "q18 GroupTopN groups": "risingwave_tpu_torch.stream.top_n",
+    }) as b3_inputs:
+        b3_launches(reset=True)
+        _, secs = asyncio.run(drive(plan.mv, 2))
+        b3 = b3_launches()
+    uninterrupted = mv_counter(plan)
+    if uninterrupted != q18_expected(bids):
+        raise AssertionError("q18 MV differs from numpy's latest bids")
+    extra, _ = nexmark_chunks("bid", NEX_CHUNKS_PER_EPOCH, device, gen)
+    asyncio.run(q18_sync_free_epoch(plan, stack_chunks(extra),
+                                    NEX_EPOCHS + 2))
+    if mv_counter(plan) != q18_expected(bids + extra):
+        raise AssertionError("q18 MV after the sync-free epoch differs from "
+                             "numpy's")
+    groups = int(plan.top_n.state.group_table.occupied.sum())
+
+    # the same epochs with a state table, dropped after epoch 2 of 4
+    store = MemoryStateStore()
+    half = 2 * NEX_CHUNKS_PER_EPOCH
+    plan = q18_plan(device, epoch_source(BID_SCHEMA, bids[:half],
+                                         checkpoint=True), store, True)
+    ckpt_ms = []
+    checkpoint = plan.top_n._checkpoint
+
+    def timed_checkpoint(epoch):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        checkpoint(epoch)
+        ckpt_ms.append((time.perf_counter() - t0) * 1e3)
+
+    plan.top_n._checkpoint = timed_checkpoint
+    asyncio.run(drain_into(plan.mv, Drain(), store))
+    rows_stored = store.table_len(2)
+    del plan, checkpoint
+    torch.cuda.empty_cache()
+    b3_launches(reset=True)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    # the bids' row ids resume above the first half's
+    plan = q18_plan(device, epoch_source(BID_SCHEMA, bids[half:], 3, True),
+                    store, True, row_id_start=half * CHUNK)
+    torch.cuda.synchronize()
+    recovery_s = time.perf_counter() - t0
+    recovery_b3 = b3_launches()
+    asyncio.run(drain_into(plan.mv, Drain(), store))
+    if mv_counter(plan) != uninterrupted:
+        raise AssertionError("q18 recovery: the MV differs from the "
+                             "uninterrupted run's")
+    if recovery_b3 <= 0:
+        raise AssertionError("q18 recovery did not run kernel B3")
+    timed_rows = (NEX_EPOCHS - 1) * NEX_CHUNKS_PER_EPOCH * CHUNK
+    return {"groups": groups, "mv_rows": sum(uninterrupted.values()),
+            "source_rows_per_s": timed_rows / secs, "b3_launches": b3,
+            "rows_stored": rows_stored, "checkpoint_ms": ckpt_ms,
+            "recovery_s": recovery_s, "recovery_b3_launches": recovery_b3,
+            "b3_inputs": b3_inputs}
+
+
+def nexmark_plan(name: str, device, auctions, bids):
+    """A fresh q105 or q18 plan at the phase's sizes over these chunks."""
+    from risingwave_tpu_torch.connector import AUCTION_SCHEMA, BID_SCHEMA
+    from risingwave_tpu_torch.storage import MemoryStateStore, StateTable
+    from risingwave_tpu_torch.stream import nexmark_plans as plans
+    store = MemoryStateStore()
+    if name == "q18":
+        return q18_plan(device, epoch_source(BID_SCHEMA, bids), store)
+    return plans.q105(
+        epoch_source(AUCTION_SCHEMA, auctions), epoch_source(BID_SCHEMA, bids),
+        StateTable(store, 1, plans.q105_schema(), [0, 1]),
+        limit=Q105_LIMIT, key_capacity=Q105_KEY_CAPACITY,
+        bucket_width=Q105_BUCKET_WIDTH, agg_capacity=Q105_AGG_CAPACITY,
+        topn_capacity=Q105_TOPN_CAPACITY, out_capacity=CHUNK, device=device)
+
+
+def trace_plan(build, n_chunks: int) -> dict:
+    """Two epochs of a fresh plan under the profiler's CUDA trace (the
+    first included), as ``trace_summary``."""
+    from torch.profiler import ProfilerActivity, profile
+    plan = build()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        asyncio.run(drive(plan.mv, 1))
+        wall = time.perf_counter() - t0
+    return trace_summary(prof, wall, n_chunks * CHUNK)
 
 
 def kernel_times(kernel, plain, args):
@@ -1926,15 +2364,50 @@ def main() -> int:
     b3_paths["q7 recovery"] = q7r["b3_launches"]
     b1_paths["q7 recovery"] = q7r["b1_launches"]
     print("q7_recovery: " + json.dumps(q7r) + f" [{card}]")
+
+    # -- phases 13-15: q105 (TopN), q102 (DynamicFilter over a
+    # MaterializedAgg bound) and q18 (GroupTopN WITH TIES, batched ingest
+    # under the sync check, checkpoint and recovery)
+    n_nex = NEX_EPOCHS * NEX_CHUNKS_PER_EPOCH
+    auctions, _ = nexmark_chunks("auction", n_nex, device)
+    nbids, _ = nexmark_chunks("bid", n_nex, device)
+    q105r = run_q105(device, auctions, nbids)
+    q105_input = q105r.pop("b1_input")
+    b3_inputs = q105r.pop("b3_inputs")
+    b1_paths["q105"], b3_paths["q105"] = (q105r["b1_launches"],
+                                          q105r["b3_launches"])
+    print("q105: " + json.dumps(q105r) + f" [{card}]")
+    torch.cuda.empty_cache()
+    q102r = run_q102(device, auctions, nbids)
+    b3_inputs.update(q102r.pop("b3_inputs"))
+    b1_paths["q102"], b3_paths["q102"] = (q102r["b1_launches"],
+                                          q102r["b3_launches"])
+    print("q102: " + json.dumps(q102r) + f" [{card}]")
+    torch.cuda.empty_cache()
+    q18r = run_q18(device)
+    b3_inputs.update(q18r.pop("b3_inputs"))
+    if len(b3_inputs) != 5:
+        raise AssertionError(f"kernel B3 inputs kept only at "
+                             f"{sorted(b3_inputs)}")
+    b3_paths["q18"] = q18r["b3_launches"]
+    b3_paths["q18 recovery"] = q18r["recovery_b3_launches"]
+    print("q18: " + json.dumps(q18r) + f" [{card}]")
     for path, n in list(b3_paths.items()) + list(b1_paths.items()):
         if n <= 0:
             raise AssertionError(f"the {path} run never launched its "
                                  "kernel")
 
-    # -- phase 13: where the time goes (device busy share)
+    # -- phase 16: where the time goes (device busy share)
     head = chunks[:2 * CHUNKS_PER_EPOCH]
     print("q7_trace: " + json.dumps(trace(q7_pipeline, head, device)))
     print("q5_trace: " + json.dumps(trace(q5_pipeline, head, device)))
+    two = 2 * NEX_CHUNKS_PER_EPOCH
+    print("q105_trace: " + json.dumps(trace_plan(lambda: nexmark_plan(
+        "q105", device, auctions[:two], nbids[:two]), 2 * two)))
+    print("q18_trace: " + json.dumps(trace_plan(lambda: nexmark_plan(
+        "q18", device, None, nbids[:two]), two)))
+    del auctions, nbids
+    torch.cuda.empty_cache()
     print("q7_fused_trace: " + json.dumps(trace_fused(fq7)))
     b3_epoch_ms = {}    # B3's device ms in one fused epoch of each path
     for path, runner in (("q5", fq5), ("q8", fq8), ("q3", fq3b)):
@@ -1945,7 +2418,8 @@ def main() -> int:
 
     # kernel times on the inputs their path gave them: B1 on the q7 run's
     # input with the most keyed rows, B2 on the fused q7 run's last flush,
-    # B3 on the q5 input of HASH_CASES
+    # B3 on the q5 input of HASH_CASES, the q5 compaction's input and the
+    # busiest input of each row set and group table of q105, q102 and q18
     ident, matches = max(captured, key=lambda im: int((im[0] >= 0).sum()))
     n, w = matches.shape
     for kern, plain in zip(rt_mod.rank_totals(ident, matches),
@@ -1956,6 +2430,21 @@ def main() -> int:
     ms, plain_ms, call_ms, plain_call_ms, timing = kernel_times(
         rt_mod.rank_totals, rt_mod.rank_totals_plain, (ident, matches))
     bound_ms, bound_by, dense_ms = rank_totals_bound(ident, matches)
+    # B1 on q105's busiest input (its join at bucket width 2048)
+    for kern, plain in zip(rt_mod.rank_totals(*q105_input),
+                           rt_mod.rank_totals_plain(*q105_input)):
+        max_err = max(max_err, int((kern - plain).abs().max()))
+    if max_err:
+        raise AssertionError("rank_totals differs from plain on q105's "
+                             "input")
+    q105_b1 = dict(zip(("ms", "plain_ms", "call_ms", "plain_call_ms",
+                        "timing"),
+                       kernel_times(rt_mod.rank_totals,
+                                    rt_mod.rank_totals_plain, q105_input)))
+    q105_b1.update(shape=list(q105_input[1].shape),
+                   keyed_rows=q105r["b1_busiest_keyed_rows"],
+                   bound_ms=rank_totals_bound(*q105_input)[0])
+    print("rank_totals q105 input: " + json.dumps(q105_b1))
     # B1 over every input of the q7 run, one call each: its device time on
     # the path, and the bound summed the same way
     path_ms, _ = time_cuda(
@@ -1977,6 +2466,12 @@ def main() -> int:
     ins, find = b3_timing["insert"], b3_timing["find"]
     compact_b3 = compact_probe_times(q5r["compact_input"])
     print("hash_probe compact input: " + json.dumps(compact_b3))
+    # B3 on the busiest input of each row set and group table of the new
+    # paths, on both of its find-or-insert paths
+    path_b3 = {label: probe_input_times(label, *inp, paths=B3_PATHS)
+               for label, inp in b3_inputs.items()}
+    del b3_inputs
+    print("hash_probe path inputs: " + json.dumps(path_b3))
     epochs = {"fused q5": FUSED_TIMED_EPOCHS + 1,
               "fused q8": Q8_Q3_TIMED_EPOCHS + 1,
               "fused q3": Q8_Q3_TIMED_EPOCHS + 1}
@@ -1986,8 +2481,10 @@ def main() -> int:
         "source": "risingwave_tpu_torch/csrc/rank_totals.cu",
         "replaces": "risingwave_tpu/ops/pallas_rank.py:85",
         "tpu_counterpart": "risingwave_tpu/ops/pallas_rank.py::_kernel",
-        "path": "q7 executor; q7 executor (bench form); q7 recovery",
+        "path": "q7 executor; q7 executor (bench form); q7 recovery; "
+                "q105; q102",
         "launches": q7_launches, "path_launches": b1_paths,
+        "q105_input": q105_b1,
         "equal": max_err == 0, "max_abs_err": max_err, "shape": [n, w],
         "ms": ms, "kernel_ms": ms, "plain_ms": plain_ms,
         "call_ms": call_ms, "plain_call_ms": plain_call_ms,
@@ -2017,7 +2514,7 @@ def main() -> int:
             "lax.while_loop with no Pallas kernel",
         "path": "q7 and q5 executors, fused q5, q8 and q3, q5 and q7 "
                 "executors in bench form, q5 recovery, q5 compact, q7 "
-                "recovery",
+                "recovery, q105, q102, q18, q18 recovery",
         "launches": sum(b3_paths.values()), "path_launches": b3_paths,
         "launches_per_epoch": {p: b3_paths[p] / e
                                for p, e in epochs.items()},
@@ -2033,7 +2530,7 @@ def main() -> int:
         "find_bound_ms": find["bound_ms"],
         "find_sector_floor_ms": find["floor_ms"],
         "epoch_ms": b3_epoch_ms, "compact_input": compact_b3,
-        "library_ms": None}]}))
+        "path_inputs": path_b3, "library_ms": None}]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -1,6 +1,6 @@
 from .types import (  # noqa: F401
     BOOL, FLOAT64, GLOBAL_LIST_DICT, GLOBAL_STRING_DICT, INT32, INT64,
-    TIMESTAMP, VARCHAR, DataType, Field, ListDict, Schema, StringDict,
+    SERIAL, TIMESTAMP, VARCHAR, DataType, Field, ListDict, Schema, StringDict,
     TypeKind,
 )
 from .chunk import (  # noqa: F401

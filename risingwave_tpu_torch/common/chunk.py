@@ -159,16 +159,21 @@ def physical_chunk(schema: Schema, rows: Sequence[Sequence[Any]],
 
 
 def chunk_to_rows(chunk: StreamChunk, schema: Schema,
-                  with_ops: bool = False) -> list:
-    """Chunk → visible python rows (one host copy; tests and egress)."""
+                  with_ops: bool = False, physical: bool = False) -> list:
+    """Chunk → visible python rows (one host copy; tests and egress).
+
+    ``physical=True`` keeps the raw physical values (VARCHAR as its id),
+    the state-table storage form."""
     ops = chunk.ops.cpu().numpy()
     vis = chunk.vis.cpu().numpy()
     datas = [c.data.cpu().numpy() for c in chunk.columns]
     masks = [c.mask.cpu().numpy() for c in chunk.columns]
+    conv = [(lambda v: v.item()) if physical else schema[ci].type.to_python
+            for ci in range(len(schema))]
     out = []
     for i in np.nonzero(vis)[0]:
-        row = tuple(schema[ci].type.to_python(datas[ci][i]) if masks[ci][i]
-                    else None for ci in range(len(schema)))
+        row = tuple(conv[ci](datas[ci][i]) if masks[ci][i] else None
+                    for ci in range(len(schema)))
         out.append((int(ops[i]), row) if with_ops else row)
     return out
 

@@ -2,17 +2,20 @@
 
 Counterpart of ``risingwave_tpu/common/types.py``: every logical type lowers
 to a fixed-width tensor dtype. This package carries the scalar types of the
-NEXmark q5/q7 path. VARCHAR is dictionary-encoded at the ingest boundary: the
+NEXmark paths. VARCHAR is dictionary-encoded at the ingest boundary: the
 device sees int32 ids into the host's process-wide ``GLOBAL_STRING_DICT``,
-which ``to_physical`` interns into and ``to_python`` looks up.
+which ``to_physical`` interns into and ``to_python`` looks up. Ids are
+insertion-ordered, so every ordering on VARCHAR goes through the
+dictionary's rank table (``StringDict.ranks`` / ``device_ranks``).
 """
 
 from __future__ import annotations
 
 import dataclasses
 import enum
+import heapq
 import threading
-from typing import Any
+from typing import Any, Optional
 
 import numpy as np
 import torch
@@ -25,6 +28,7 @@ class TypeKind(enum.Enum):
     FLOAT64 = "double"
     TIMESTAMP = "timestamp"    # int64 microseconds since epoch
     VARCHAR = "varchar"        # int32 dictionary id
+    SERIAL = "serial"          # int64 row id (shard-prefixed)
 
 
 _PHYSICAL: dict[TypeKind, torch.dtype] = {
@@ -34,12 +38,14 @@ _PHYSICAL: dict[TypeKind, torch.dtype] = {
     TypeKind.FLOAT64: torch.float64,
     TypeKind.TIMESTAMP: torch.int64,
     TypeKind.VARCHAR: torch.int32,
+    TypeKind.SERIAL: torch.int64,
 }
 
 _NP_OF_TORCH = {torch.bool: np.bool_, torch.int32: np.int32,
                 torch.int64: np.int64, torch.float64: np.float64}
 
-_INTEGRAL = {TypeKind.INT32, TypeKind.INT64, TypeKind.TIMESTAMP}
+_INTEGRAL = {TypeKind.INT32, TypeKind.INT64, TypeKind.TIMESTAMP,
+             TypeKind.SERIAL}
 
 
 class StringDict:
@@ -53,7 +59,8 @@ class StringDict:
     them raw; they never cross a process boundary (the durable row format
     in ``row.py`` stores the string bytes)."""
 
-    __slots__ = ("_to_id", "_to_str", "max_size", "_lock")
+    __slots__ = ("_to_id", "_to_str", "max_size", "_lock", "_sorted",
+                 "_unsorted", "_rank_version", "_ranks", "_device_ranks")
 
     DEFAULT_MAX = 1 << 22          # 4M distinct strings
 
@@ -62,6 +69,14 @@ class StringDict:
         self._to_id: dict[str, int] = {"": 0}
         self._to_str: list[str] = [""]
         self.max_size = max_size
+        # sorted prefix + unsorted suffix: interning stays an append, and a
+        # rank refresh merges the suffix in (no full re-sort)
+        self._sorted: list[str] = [""]
+        self._unsorted: list[str] = []
+        self._rank_version = -1
+        self._ranks: Optional[np.ndarray] = None
+        # device -> (version, padded int64 rank table on that device)
+        self._device_ranks: dict = {}
 
     def intern(self, s: str) -> int:
         i = self._to_id.get(s)
@@ -79,6 +94,7 @@ class StringDict:
                 i = len(self._to_str)
                 self._to_id[s] = i
                 self._to_str.append(s)
+                self._unsorted.append(s)
         return i
 
     def lookup(self, i: int) -> str:
@@ -86,6 +102,54 @@ class StringDict:
 
     def __len__(self) -> int:
         return len(self._to_str)
+
+    # -- ordering --------------------------------------------------------------
+    # State always stores ids (stable as the dictionary grows); ranks are
+    # looked up fresh wherever an ordering is computed.
+
+    @property
+    def version(self) -> int:
+        """Grows by one exactly when a new string is interned."""
+        return len(self._to_str)
+
+    def ranks(self) -> np.ndarray:
+        """int64[version]: ``ranks()[id]`` is the rank of string ``id`` in
+        codepoint order. A refresh merges the strings interned since the
+        last one into the sorted prefix; cached per version."""
+        n = len(self._to_str)
+        if self._rank_version != n:
+            if self._unsorted:
+                self._sorted = list(heapq.merge(self._sorted,
+                                                sorted(self._unsorted)))
+                self._unsorted = []
+            pos = {s: i for i, s in enumerate(self._sorted)}
+            self._ranks = np.fromiter((pos[s] for s in self._to_str[:n]),
+                                      np.int64, n)
+            self._rank_version = n
+        return self._ranks
+
+    def device_ranks(self, device) -> torch.Tensor:
+        """The rank table on ``device``, padded to a power of two (at least
+        8); padding ranks as ``version``, above every live string. Cached
+        per device and version."""
+        dev = torch.device(device)
+        n = len(self._to_str)
+        hit = self._device_ranks.get(dev)
+        if hit is None or hit[0] != n:
+            cap = 8
+            while cap < n:
+                cap *= 2
+            t = np.full(cap, n, np.int64)
+            t[:n] = self.ranks()
+            hit = (n, torch.from_numpy(t).to(dev))
+            self._device_ranks[dev] = hit
+        return hit[1]
+
+
+def rank_of(ranks: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
+    """int64 lexicographic rank of each VARCHAR id through a rank table
+    (``StringDict.device_ranks``); ids past the table clamp into it."""
+    return ranks[ids.long().clamp(0, ranks.shape[0] - 1)]
 
 
 #: the process-wide string dictionary: sources intern, sinks look up
@@ -198,6 +262,7 @@ INT64 = DataType(TypeKind.INT64)
 FLOAT64 = DataType(TypeKind.FLOAT64)
 TIMESTAMP = DataType(TypeKind.TIMESTAMP)
 VARCHAR = DataType(TypeKind.VARCHAR)
+SERIAL = DataType(TypeKind.SERIAL)
 
 
 @dataclasses.dataclass(frozen=True)

@@ -1,10 +1,14 @@
-"""Aggregate function specifications: count, sum, min, max and avg lanes.
+"""Aggregate function specifications.
 
-Counterpart of ``risingwave_tpu/expr/agg.py``. Each aggregate keeps a fixed
-number of int64/float64 lanes per group; ``contributions`` gives per-row
-values that the caller scatter-reduces into the group table. min/max are
-exact for append-only inputs, as in the reference. HLL, string min/max and
-DISTINCT are not ported yet.
+Counterpart of ``risingwave_tpu/expr/agg.py``. Each lane aggregate keeps a
+fixed number of int64/float64 lanes per group; ``contributions`` gives
+per-row values that the caller scatter-reduces into the group table. min/max
+are exact for append-only inputs, as in the reference. MIN/MAX over VARCHAR
+stores the dictionary id and reduces in ``rank << 32 | id`` space, with the
+ranks fetched fresh at each update. Calls that cannot be fixed lanes (exact
+DISTINCT, the collecting kinds) run on the host tier
+(``stream/materialized_agg.py``). approx_count_distinct (the HLL lanes) and
+array_agg (no LIST type in this package) are not ported yet.
 """
 
 from __future__ import annotations
@@ -14,10 +18,11 @@ from typing import Optional
 
 import torch
 
-from ..common.types import FLOAT64, INT64, DataType
+from ..common.types import FLOAT64, INT64, VARCHAR, DataType, rank_of
 
 _I64_MAX = torch.iinfo(torch.int64).max
 _LANE_KINDS = ("count", "sum", "min", "max", "avg")
+_UNPORTED = ("approx_count_distinct", "array_agg")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -28,22 +33,49 @@ class AggCall:
     arg: int = -1
     arg_type: Optional[DataType] = None
     distinct: bool = False
+    #: constant side argument: string_agg's delimiter, percentile_cont's
+    #: fraction (a python value)
+    extra: Optional[object] = None
+
+    #: kinds that can never be fixed device lanes (ragged multiset state):
+    #: always on the host tier
+    MATERIALIZED_KINDS = frozenset({"string_agg", "percentile_cont", "mode"})
 
     def __post_init__(self):
-        if self.kind not in _LANE_KINDS:
+        if self.kind in _UNPORTED:
             raise NotImplementedError(f"aggregate {self.kind!r}")
-        if self.distinct:
-            raise NotImplementedError("DISTINCT aggregates")
-        if self.arg_type is not None and self.arg_type.is_string:
-            raise NotImplementedError(f"{self.kind} over VARCHAR")
+        if (self.kind not in _LANE_KINDS
+                and self.kind not in self.MATERIALIZED_KINDS):
+            raise ValueError(f"unknown aggregate {self.kind!r}")
 
     @property
     def output_type(self) -> DataType:
         if self.kind == "count":
             return INT64
-        if self.kind == "avg":
+        if self.kind in ("avg", "percentile_cont"):
             return FLOAT64
+        if self.kind == "string_agg":
+            return VARCHAR
         return self.arg_type
+
+    @property
+    def needs_append_only(self) -> bool:
+        """min/max lanes are monotone: a delete cannot retract them."""
+        return self.kind in ("min", "max")
+
+    @property
+    def lanes_unsupported(self) -> bool:
+        """True when this call cannot run on the fixed-lane device path at
+        all (exact DISTINCT or a collecting kind); the device executors
+        raise on it and the planner routes it to MaterializedAggExecutor."""
+        return self.distinct or self.kind in self.MATERIALIZED_KINDS
+
+    @property
+    def is_string_minmax(self) -> bool:
+        """MIN/MAX over VARCHAR: the lane stores the dictionary id; reduces
+        compare ``rank << 32 | id`` with the rank table of the update."""
+        return (self.kind in ("min", "max") and self.arg_type is not None
+                and self.arg_type.is_string)
 
     @property
     def num_lanes(self) -> int:
@@ -53,9 +85,9 @@ class AggCall:
         return self.arg_type is not None and self.arg_type.is_integral
 
     def _minmax_sentinel(self):
-        """Identity of a min/max lane: int64 extrema for integral args,
-        ±inf for floats."""
-        if self._integral_arg():
+        """Identity of a min/max lane: int64 extrema for integral and
+        VARCHAR args, ±inf for floats."""
+        if self._integral_arg() or self.is_string_minmax:
             return _I64_MAX if self.kind == "min" else -_I64_MAX
         return float("inf") if self.kind == "min" else float("-inf")
 
@@ -72,16 +104,27 @@ class AggCall:
             return [torch.float64 if self.arg_type.is_float else torch.int64]
         if self.kind == "avg":
             return [torch.float64, torch.int64]
-        return [torch.int64 if self._integral_arg() else torch.float64]
+        return [torch.int64 if (self._integral_arg() or self.is_string_minmax)
+                else torch.float64]
 
     def reduce_ops(self) -> list[str]:
         if self.kind in ("min", "max"):
             return [self.kind]
         return ["add"] * self.num_lanes
 
-    def contributions(self, value, vmask, signs):
-        """Per-row contribution tensors, one per lane ([N] each)."""
+    def contributions(self, value, vmask, signs, str_ranks=None):
+        """Per-row contribution tensors, one per lane ([N] each).
+        ``str_ranks``: the dictionary's rank table, required iff
+        ``is_string_minmax``."""
         s = signs
+        if self.is_string_minmax:
+            if str_ranks is None:
+                raise ValueError("MIN/MAX over VARCHAR requires the "
+                                 "dictionary rank table (str_ranks)")
+            packed = (rank_of(str_ranks, value) << 32) | value.long()
+            return [torch.where(vmask & (s > 0), packed,
+                                torch.full_like(packed,
+                                                self._minmax_sentinel()))]
         if self.kind == "count":
             if self.arg < 0:
                 return [s.long()]
@@ -96,6 +139,22 @@ class AggCall:
         sent = torch.full_like(value, self._minmax_sentinel(), dtype=dt)
         return [torch.where(vmask & (s > 0), value.to(dt), sent)]
 
+    def pack_lane(self, lane, str_ranks):
+        """A stored VARCHAR min/max lane (ids) lifted into ``rank << 32 |
+        id`` space for a reduce; the identity for every other call.
+        Sentinels stay as they are."""
+        if not self.is_string_minmax:
+            return lane
+        packed = (rank_of(str_ranks, lane) << 32) | lane
+        return torch.where(lane == self._minmax_sentinel(), lane, packed)
+
+    def unpack_lane(self, lane):
+        """The id again after a reduce (drops the rank)."""
+        if not self.is_string_minmax:
+            return lane
+        return torch.where(lane == self._minmax_sentinel(), lane,
+                           lane & 0xFFFFFFFF)
+
     def output(self, lanes, count_nonzero):
         """Project state lanes ([G] tensors) to (data, mask) columns."""
         if self.kind == "count":
@@ -106,7 +165,7 @@ class AggCall:
             cnt = lanes[1]
             safe = torch.where(cnt == 0, torch.ones_like(cnt), cnt)
             return lanes[0] / safe, cnt != 0
-        if self._integral_arg():
+        if self._integral_arg() or self.is_string_minmax:
             valid = lanes[0] != self._minmax_sentinel()
         else:
             valid = torch.isfinite(lanes[0])

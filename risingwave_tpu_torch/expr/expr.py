@@ -3,20 +3,25 @@
 Counterpart of ``risingwave_tpu/expr/expr.py``: an expression is a small
 static tree whose ``eval(chunk) -> Column`` is plain tensor code over the
 column tensors. Null semantics are SQL three-valued logic: masks propagate
-through strict functions; AND/OR use Kleene logic. The string, regex, JSONB,
-extract and decimal families are not ported yet.
+through strict functions; AND/OR use Kleene logic. VARCHAR values are
+dictionary ids: equality compares ids, the ordering comparisons compare the
+ids' lexicographic ranks, and casts to or from VARCHAR format or parse each
+distinct value on the host. The string, regex, JSONB, extract and decimal
+function families are not ported yet.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import datetime
 from typing import Any, Callable, Sequence
 
+import numpy as np
 import torch
 
 from ..common import types as T
 from ..common.chunk import Column, StreamChunk
-from ..common.types import DataType, TypeKind
+from ..common.types import GLOBAL_STRING_DICT, DataType, TypeKind, rank_of
 
 
 class Expr:
@@ -84,11 +89,20 @@ class FunctionCall(Expr):
         return Column(data, mask)
 
 
+_STR_ORDER_FNS = {
+    "less_than", "less_than_or_equal", "greater_than",
+    "greater_than_or_equal",
+}
+
+
 def call(name: str, *args: Expr) -> FunctionCall:
     if name not in _REGISTRY:
         raise KeyError(f"unknown function {name!r}")
-    if any(a.type.is_string for a in args) and name not in (
-            "equal", "not_equal", "is_null", "is_not_null"):
+    if name in _STR_ORDER_FNS and all(a.type.is_string for a in args):
+        # ids are insertion-ordered: order by the dictionary's ranks
+        name = "str_" + name
+    elif any(a.type.is_string for a in args) and name not in (
+            "equal", "not_equal", "is_null", "is_not_null", "str_rank"):
         raise NotImplementedError(
             f"{name} over VARCHAR: string functions are not ported yet")
     _, infer = _REGISTRY[name]
@@ -120,6 +134,7 @@ def _promote(ts: Sequence[DataType]) -> DataType:
 def _t_bool(ts): return T.BOOL
 def _t_same(ts): return _promote(ts)
 def _t_first(ts): return ts[0]
+def _t_int64(ts): return T.INT64
 
 
 def _strict_mask(masks):
@@ -195,6 +210,32 @@ register("greater_than", _t_bool)(_cmp(torch.gt))
 register("greater_than_or_equal", _t_bool)(_cmp(torch.ge))
 
 
+@register("str_rank", _t_int64)
+def _str_rank(datas, masks, out_type):
+    """VARCHAR id -> lexicographic rank, through the rank table as of this
+    evaluation (the table changes as strings are interned)."""
+    ranks = GLOBAL_STRING_DICT.device_ranks(datas[0].device)
+    return rank_of(ranks, datas[0]), masks[0]
+
+
+def _str_cmp(fn):
+    """An ordering comparison of two VARCHAR operands: both sides map
+    through ONE rank table fetched after both were evaluated, so a string
+    interned during evaluation (a literal's first use) cannot put them in
+    different rank spaces."""
+    def impl(datas, masks, out_type):
+        ranks = GLOBAL_STRING_DICT.device_ranks(datas[0].device)
+        return (fn(rank_of(ranks, datas[0]), rank_of(ranks, datas[1])),
+                _strict_mask(masks))
+    return impl
+
+
+register("str_less_than", _t_bool)(_str_cmp(torch.lt))
+register("str_less_than_or_equal", _t_bool)(_str_cmp(torch.le))
+register("str_greater_than", _t_bool)(_str_cmp(torch.gt))
+register("str_greater_than_or_equal", _t_bool)(_str_cmp(torch.ge))
+
+
 # Kleene AND/OR
 @register("and", _t_bool)
 def _and(datas, masks, out_type):
@@ -241,6 +282,65 @@ def _coalesce(datas, masks, out_type):
     return data, mask
 
 
+_EPOCH = datetime.datetime(1970, 1, 1)
+_BOOL_TEXT = {"t": True, "true": True, "y": True, "yes": True, "on": True,
+              "1": True, "f": False, "false": False, "n": False, "no": False,
+              "off": False, "0": False}
+
+
+def text_of(v: Any, t: DataType) -> str:
+    """A physical value's text form: the reference's pgwire text encoding
+    (``risingwave_tpu/frontend/pgwire.py::_fmt_value``)."""
+    if t.kind == TypeKind.BOOL:
+        return "t" if v else "f"
+    if t.kind == TypeKind.TIMESTAMP:
+        return (_EPOCH + datetime.timedelta(microseconds=int(v))
+                ).isoformat(sep=" ")
+    if t.is_string:
+        return GLOBAL_STRING_DICT.lookup(int(v))
+    return str(t.to_python(v))
+
+
+def parse_text(text: str, t: DataType) -> Any:
+    """Text -> physical value of ``t``; raises ValueError on text that is
+    not a value of ``t`` (PostgreSQL's "invalid input syntax")."""
+    s = text.strip()
+    if t.kind == TypeKind.BOOL:
+        try:
+            return _BOOL_TEXT[s.lower()]
+        except KeyError:
+            raise ValueError(
+                f"invalid input syntax for type boolean: {text!r}") from None
+    if t.kind == TypeKind.TIMESTAMP:
+        # naive = UTC, exact integer microseconds (the reference binder's
+        # timestamp literal parse)
+        d = datetime.datetime.fromisoformat(s)
+        if d.tzinfo is not None:
+            d = d.astimezone(datetime.timezone.utc).replace(tzinfo=None)
+        return (d - _EPOCH) // datetime.timedelta(microseconds=1)
+    if t.is_float:
+        return float(s)
+    return int(s)
+
+
+def _cast_text(c: Column, src: DataType, dst: DataType) -> torch.Tensor:
+    """Cast to or from VARCHAR: each distinct non-null value is formatted
+    (interned) or parsed once on the host. NULL rows stay NULL and are
+    never parsed."""
+    data = c.data.cpu().numpy()
+    mask = c.mask.cpu().numpy()
+    uniq, inv = np.unique(data[mask], return_inverse=True)
+    if dst.is_string:
+        vals = [GLOBAL_STRING_DICT.intern(text_of(u.item(), src))
+                for u in uniq]
+    else:
+        vals = [parse_text(GLOBAL_STRING_DICT.lookup(int(u)), dst)
+                for u in uniq]
+    out = np.zeros(data.shape, dst.np_dtype)
+    out[mask] = np.asarray(vals, dst.np_dtype)[inv.reshape(-1)]
+    return torch.from_numpy(out).to(c.data.device)
+
+
 @dataclasses.dataclass(frozen=True, eq=False)
 class Cast(Expr):
     arg: Expr
@@ -249,7 +349,7 @@ class Cast(Expr):
     def eval(self, chunk: StreamChunk) -> Column:
         c = self.arg.eval(chunk)
         if self.arg.type.is_string or self.type.is_string:
-            raise NotImplementedError("casts to or from VARCHAR")
+            return Column(_cast_text(c, self.arg.type, self.type), c.mask)
         return Column(c.data.to(self.type.dtype), c.mask)
 
 

@@ -1,8 +1,9 @@
 """Carry state across from the JAX package.
 
 Turns the reference's ``StreamChunk``, ``DeviceHashTable``, ``AggState``,
-``JoinState``, ``IntervalJoinState``, ``SessionWindowState``, ``Q3State``
-and PRNG keys into this package's
+``JoinState``, ``IntervalJoinState``, ``SessionWindowState``, ``Q3State``,
+``RowSetState``, ``TopNState``, ``SimpleAggState`` and PRNG keys into this
+package's
 tensors on a given device. The reference
 objects arrive as nested numpy arrays under the JAX field names: either the
 flax dataclasses with numpy leaves (``jax.tree_util.tree_map(np.asarray,
@@ -24,7 +25,10 @@ from .ops.grouped_agg import AggState
 from .ops.hash_table import DeviceHashTable
 from .ops.interval_join import IntervalJoinState, state_from_host
 from .ops.join_state import JoinSideState, JoinState
+from .ops.row_set import RowSetState
 from .ops import session_window, stream_q3
+from .stream.simple_agg import SimpleAggState
+from .stream.top_n import TopNState
 
 
 def _get(obj: Any, name: str) -> Any:
@@ -59,6 +63,42 @@ def agg_state_from_jax(state: Any, device=DEFAULT_DEVICE) -> AggState:
         ckpt_dirty=_tensor(_get(state, "ckpt_dirty"), device),
         overflow=_tensor(_get(state, "overflow"), device),
         last_used=_tensor(_get(state, "last_used"), device))
+
+
+def _columns(cols: Any, device) -> tuple[Column, ...]:
+    return tuple(Column(_tensor(_get(c, "data"), device),
+                        _tensor(_get(c, "mask"), device)) for c in cols)
+
+
+def row_set_state_from_jax(state: Any, device=DEFAULT_DEVICE) -> RowSetState:
+    return RowSetState(
+        table=hash_table_from_jax(_get(state, "table"), device),
+        live=_tensor(_get(state, "live"), device),
+        cols=_columns(_get(state, "cols"), device),
+        emitted=_tensor(_get(state, "emitted"), device),
+        emitted_cols=_columns(_get(state, "emitted_cols"), device),
+        ckpt_dirty=_tensor(_get(state, "ckpt_dirty"), device),
+        overflow=_tensor(_get(state, "overflow"), device),
+        saw_delete=_tensor(_get(state, "saw_delete"), device))
+
+
+def topn_state_from_jax(state: Any, device=DEFAULT_DEVICE) -> TopNState:
+    """The reference's ``TopNState``; its int32 gids widen to int64."""
+    return TopNState(
+        rows=row_set_state_from_jax(_get(state, "rows"), device),
+        group_table=hash_table_from_jax(_get(state, "group_table"), device),
+        gid=_tensor(_get(state, "gid"), device).long(),
+        cand=_tensor(_get(state, "cand"), device),
+        t1=_tensor(_get(state, "t1"), device))
+
+
+def simple_agg_state_from_jax(state: Any,
+                              device=DEFAULT_DEVICE) -> SimpleAggState:
+    return SimpleAggState(
+        lanes=[_tensor(a, device) for a in _get(state, "lanes")],
+        prev_lanes=[_tensor(a, device) for a in _get(state, "prev_lanes")],
+        dirty=_tensor(_get(state, "dirty"), device),
+        ever_emitted=_tensor(_get(state, "ever_emitted"), device))
 
 
 def join_side_from_jax(side: Any, device=DEFAULT_DEVICE) -> JoinSideState:

@@ -30,7 +30,7 @@ CXX_FLAGS = ("-O3", "-shared", "-fPIC", "-std=c++17")
 
 #: TypeKind name -> native type code (rowcodec.cpp's header comment)
 _CODE_BY_KIND = {"BOOL": 0, "INT32": 2, "INT64": 3, "TIMESTAMP": 3,
-                 "FLOAT64": 5, "VARCHAR": 6}
+                 "SERIAL": 3, "FLOAT64": 5, "VARCHAR": 6}
 #: native type code -> the numpy dtype the C side reads
 _NP_BY_CODE = {0: np.uint8, 2: np.int32, 3: np.int64, 5: np.float64}
 

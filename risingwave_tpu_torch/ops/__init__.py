@@ -12,3 +12,11 @@ from .session_window import (  # noqa: F401
     SessionWindowCore, SessionWindowState,
 )
 from .stream_q3 import Q3Core, Q3State  # noqa: F401
+from .row_set import (  # noqa: F401
+    RowSetState, rs_apply_chunk, rs_changed, rs_checkpoint, rs_finish_flush,
+    rs_gather_delta, rs_new,
+)
+from .topn import (  # noqa: F401
+    OrderSpec, key0_dtype, topn_candidate_flush, topn_in_set, topn_order,
+    topn_refill,
+)

@@ -63,6 +63,13 @@ class AggCore:
         self.out_capacity = out_capacity
         self.groups_per_chunk = out_capacity // 2
         self.device = torch.device(device)
+        for c in self.agg_calls:
+            if c.lanes_unsupported:
+                # fixed device lanes cannot dedup or collect; the planner
+                # routes these to MaterializedAggExecutor
+                raise ValueError(
+                    f"{c.kind}{'(distinct)' if c.distinct else ''} needs "
+                    "materialized-input state (stream/materialized_agg.py)")
         self.lane_dtypes = [torch.int64]
         self.lane_inits = [0]
         self.call_lane_ofs = []
@@ -88,10 +95,13 @@ class AggCore:
         )
 
     def apply_chunk(self, state: AggState, chunk: StreamChunk,
-                    step=None) -> AggState:
+                    step=None, str_ranks=None) -> AggState:
         """Fold one chunk into the group table (in place), without a host
         sync. ``step``: the LRU stamp of the touched slots (None: no
-        tracking, as for an executor without a memory budget)."""
+        tracking, as for an executor without a memory budget).
+        ``str_ranks``: the dictionary's rank table, needed by MIN/MAX over
+        VARCHAR, which reduce in packed ``rank << 32 | id`` space and store
+        the id."""
         key_cols = [chunk.columns[i] for i in self.group_keys]
         _, slots, _, ovf = ht_lookup_or_insert(state.table, key_cols,
                                                chunk.vis)
@@ -104,10 +114,15 @@ class AggCore:
                 value, vmask = c.data, c.mask & chunk.vis
             else:
                 value, vmask = torch.zeros_like(signs), chunk.vis
-            contribs = call.contributions(value, vmask, signs)
+            contribs = call.contributions(value, vmask, signs, str_ranks)
             for j, (contrib, op) in enumerate(zip(contribs,
                                                   call.reduce_ops())):
-                scatter_reduce(lanes[ofs + j], slots, contrib, op)
+                if call.is_string_minmax:
+                    lane = call.pack_lane(lanes[ofs + j], str_ranks)
+                    scatter_reduce(lane, slots, contrib, op)
+                    lanes[ofs + j].copy_(call.unpack_lane(lane))
+                else:
+                    scatter_reduce(lanes[ofs + j], slots, contrib, op)
         touched = torch.where(chunk.vis, slots,
                               torch.full_like(slots, self.capacity))
         hit = hit_mask(touched, self.capacity)
@@ -264,7 +279,7 @@ class AggCore:
         return state
 
     def absorb(self, state: AggState, key_cols, stored_lanes,
-               valid: torch.Tensor) -> AggState:
+               valid: torch.Tensor, str_ranks=None) -> AggState:
         """Fault evicted groups back in (in place): merge each stored lane
         into the (possibly new) slot with the lane's reduce op, and set
         ``prev_lanes`` to the stored value, the value downstream last saw,
@@ -273,10 +288,17 @@ class AggCore:
         _, slots, _, ovf = ht_lookup_or_insert(state.table, key_cols, valid)
         idx = torch.where(valid, slots, torch.full_like(slots, self.capacity))
         keep = idx < self.capacity
-        ops = ["add"] + [op for c in self.agg_calls for op in c.reduce_ops()]
-        for lane, prev, stored, op in zip(state.lanes, state.prev_lanes,
-                                          stored_lanes, ops):
-            scatter_reduce(lane, idx, stored, op)
+        ops = [("add", None)] + [(op, c) for c in self.agg_calls
+                                 for op in c.reduce_ops()]
+        for lane, prev, stored, (op, call) in zip(
+                state.lanes, state.prev_lanes, stored_lanes, ops):
+            if call is not None and call.is_string_minmax:
+                packed = call.pack_lane(lane, str_ranks)
+                scatter_reduce(packed, idx,
+                               call.pack_lane(stored, str_ranks), op)
+                lane.copy_(call.unpack_lane(packed))
+            else:
+                scatter_reduce(lane, idx, stored, op)
             set_where(prev, keep, idx, stored.to(prev.dtype))
         hit = hit_mask(idx, self.capacity)
         state.dirty |= hit

@@ -7,3 +7,11 @@ from .barrier_align import align_streams, barrier_align  # noqa: F401
 from .project import FilterExecutor, ProjectExecutor  # noqa: F401
 from .hash_agg import HashAggExecutor  # noqa: F401
 from .hash_join import HashJoinExecutor  # noqa: F401
+from .row_id_gen import RowIdGenExecutor  # noqa: F401
+from .top_n import TopNExecutor  # noqa: F401
+from .simple_agg import (  # noqa: F401
+    SimpleAggExecutor, StatelessSimpleAggExecutor,
+)
+from .materialized_agg import MaterializedAggExecutor  # noqa: F401
+from .dynamic_filter import DynamicFilterExecutor  # noqa: F401
+from .materialize import MaterializeExecutor  # noqa: F401

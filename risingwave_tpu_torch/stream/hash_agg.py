@@ -25,7 +25,7 @@ import torch
 
 from .. import DEFAULT_DEVICE
 from ..common.chunk import DEFAULT_CHUNK_CAPACITY, Column, StreamChunk
-from ..common.types import FLOAT64, INT64, Field, Schema
+from ..common.types import FLOAT64, GLOBAL_STRING_DICT, INT64, Field, Schema
 from ..expr.agg import AggCall
 from ..ops.grouped_agg import AggCore, load_rows_into_state
 from .cache import LruClock, canonical_key
@@ -114,6 +114,13 @@ class HashAggExecutor(SingleInputExecutor):
     def group_keys(self):
         return self.core.group_keys
 
+    def _str_ranks(self):
+        """The rank table as of now, for MIN/MAX over VARCHAR (None when no
+        call needs it)."""
+        if not any(c.is_string_minmax for c in self.core.agg_calls):
+            return None
+        return GLOBAL_STRING_DICT.device_ranks(self.core.device)
+
     @property
     def agg_calls(self):
         return self.core.agg_calls
@@ -124,7 +131,8 @@ class HashAggExecutor(SingleInputExecutor):
     # -- ingest ---------------------------------------------------------------
 
     async def map_chunk(self, chunk: StreamChunk):
-        self.core.apply_chunk(self.state, chunk, self._lru_clock.next())
+        self.core.apply_chunk(self.state, chunk, self._lru_clock.next(),
+                              self._str_ranks())
         if self._evicted:
             self._fault_in(chunk.columns, chunk.vis)
         if False:
@@ -134,9 +142,11 @@ class HashAggExecutor(SingleInputExecutor):
         """The K chunks in order, one ``apply_chunk`` each (the reference's
         scan, slot for slot), with no host sync unless evicted keys exist."""
         steps = self._lru_clock.advance(batch.num_chunks)
+        str_ranks = self._str_ranks()
         for i in range(batch.num_chunks):
             self.core.apply_chunk(self.state, batch.at(i),
-                                  None if steps is None else steps[i])
+                                  None if steps is None else steps[i],
+                                  str_ranks)
         if self._evicted:
             self._fault_in(batch.chunk.columns, batch.chunk.vis)
         if False:
@@ -184,7 +194,8 @@ class HashAggExecutor(SingleInputExecutor):
                            else np.int64)
             arr[:n] = [r[nk + j] for r in rows]
             stored.append(torch.from_numpy(arr).to(dev))
-        self.core.absorb(self.state, key_cols, stored, valid)
+        self.core.absorb(self.state, key_cols, stored, valid,
+                         self._str_ranks())
 
     def _evict_cold(self) -> None:
         """Evict the coldest live groups down to 3/4 of the budget (this

@@ -4,8 +4,13 @@ against their plain versions on the card (kernel B3 on every
 q7 pipeline and the fused q7, q8 and q3 epochs on the card against the same
 runs on the CPU, the fused q5, q7, q8 and q3 epoch bodies and the batched
 (ChunkBatch) ingest of HashAgg and HashJoin with synchronizing CUDA calls
-made errors, eviction with fault-in on the card against the CPU, and a
-non-integer float64 sum lane on the card against the CPU. They skip where no card is present; run them on the card
+made errors, eviction with fault-in on the card against the CPU, a
+non-integer float64 sum lane on the card against the CPU, TopN and
+GroupTopN (a VARCHAR order whose dictionary grows mid-run included), a
+DynamicFilter under a SimpleAgg(max) bound and MIN/MAX over VARCHAR on the
+card against the CPU, and the row set's and TopN's apply
+with synchronizing calls made errors. They skip where no card is present;
+run them on the card
 with ``python -m pytest tests/test_torch_gpu.py -m gpu``.
 """
 
@@ -364,3 +369,183 @@ def test_eviction_with_fault_in_on_card_equals_cpu(cuda):
     on_cpu = _eviction_run("cpu")
     assert on_card == on_cpu
     assert on_card[1] and on_card[3] and on_card[0] and on_card[2]
+
+
+def _kv_messages(device, epochs, seed, strings=False):
+    """Scripted (k, v) epochs on ``device``: inserts, then deletes and
+    updates of earlier keys; v is a VARCHAR with ``strings``."""
+    from risingwave_tpu_torch.common import (
+        INT64, OP_DELETE, OP_INSERT, VARCHAR, Schema, make_chunk,
+    )
+    from risingwave_tpu_torch.stream import Barrier
+    rng = np.random.default_rng(seed)
+    schema = Schema.of(("k", INT64), ("v", VARCHAR if strings else INT64))
+    live, msgs = {}, [Barrier.new(1)]
+    for e in range(epochs):
+        rows, ops = [], []
+        for _ in range(48):
+            if live and rng.random() < 0.3:
+                k = int(rng.choice(sorted(live)))
+                rows.append((k, live.pop(k)))
+                ops.append(OP_DELETE)
+            else:
+                k = int(rng.integers(0, 500))
+                if k in live:
+                    continue
+                v = (f"s{int(rng.integers(0, 60)):02d}-{e}" if strings
+                     else int(rng.integers(-50, 50)))
+                live[k] = v
+                rows.append((k, v))
+                ops.append(OP_INSERT)
+        msgs += [make_chunk(schema, rows, ops, capacity=64, device=device),
+                 Barrier.new(e + 2)]
+    return schema, msgs
+
+
+def _topn_run(device, group: bool):
+    from risingwave_tpu_torch.ops.topn import OrderSpec
+    from risingwave_tpu_torch.stream import MockSource, TopNExecutor
+    schema, msgs = _kv_messages(device, 6, 11)
+    top = TopNExecutor(MockSource(schema, msgs), [OrderSpec(1, desc=True)],
+                       0, 3, pk_indices=[0], group_by=[1] if group else [],
+                       with_ties=group, table_capacity=1 << 10,
+                       out_capacity=64, device=device)
+    return _ordered_output(top)
+
+
+@pytest.mark.parametrize("group", [False, True])
+def test_topn_on_card_equals_cpu(cuda, group):
+    assert _topn_run("cuda", group) == _topn_run("cpu", group)
+
+
+def _topn_growth_run(device):
+    """A TopN ordered by a VARCHAR column whose chunks are made only when
+    the executor reaches them: strings new to the dictionary (tagged by
+    device, so each run grows it) arrive mid-run and force refills, and an
+    epoch of known strings takes the fast path. Returns (rows with the tag
+    stripped, fast flushes, refills)."""
+    from risingwave_tpu_torch.common import (
+        INT64, OP_INSERT, VARCHAR, Schema, make_chunk,
+    )
+    from risingwave_tpu_torch.ops.topn import OrderSpec
+    from risingwave_tpu_torch.stream import Barrier, MockSource, TopNExecutor
+    schema = Schema.of(("k", INT64), ("s", VARCHAR))
+    tag = f"growth-{device}-"
+    epochs = [[(1, "m"), (2, "c"), (3, "x"), (4, "f")], [(5, "a")],
+              [(6, "c")], [(7, "b")]]
+
+    class Lazy(MockSource):
+        async def execute(self):
+            yield Barrier.new(1)
+            for e, rows in enumerate(epochs):
+                yield make_chunk(schema, [(k, tag + v) for k, v in rows],
+                                 [OP_INSERT] * len(rows), capacity=64,
+                                 device=device)
+                yield Barrier.new(e + 2)
+
+    top = TopNExecutor(Lazy(schema, []), [OrderSpec(1, is_string=True)], 0,
+                       3, pk_indices=[0], table_capacity=1 << 10,
+                       out_capacity=64, device=device)
+    rows = [(op, (k, v[len(tag):])) for op, (k, v) in _ordered_output(top)]
+    return rows, top.n_fast_flushes, top.n_refills
+
+
+def test_topn_refill_forced_by_dictionary_growth_on_card(cuda):
+    """The dictionary grows mid-run: the flushes after growth refill on the
+    card as on the CPU, the one without growth is a fast flush, and the
+    rows are equal."""
+    on_card = _topn_growth_run("cuda")
+    assert on_card == _topn_growth_run("cpu")
+    assert on_card[1:] == (1, 3)
+
+
+def test_row_set_and_topn_apply_make_no_host_sync(cuda):
+    """The row set's apply and TopN's batched apply (group table through
+    kernel B3) read nothing back to the host; the flush after them equals
+    the per-chunk run on the CPU."""
+    from risingwave_tpu_torch.common import stack_chunks
+    from risingwave_tpu_torch.ops.row_set import rs_apply_chunk, rs_new
+    from risingwave_tpu_torch.ops.topn import OrderSpec
+    from risingwave_tpu_torch.stream import Barrier, MockSource, TopNExecutor
+    schema, msgs = _kv_messages("cuda", 4, 5)
+    chunks = [m for m in msgs if not isinstance(m, Barrier)]
+    rows = rs_new([schema[0].type], schema.types, 1 << 10, "cuda")
+    with cs.no_host_sync():
+        for c in chunks:
+            rs_apply_chunk(rows, c, [0])
+    assert int(rows.live.sum()) > 0
+
+    def topn(device, source_msgs):
+        return TopNExecutor(MockSource(schema, source_msgs),
+                            [OrderSpec(1)], 0, 4, pk_indices=[0],
+                            group_by=[1], table_capacity=1 << 10,
+                            out_capacity=64, device=device)
+
+    top = topn("cuda", [])
+    batch = stack_chunks(chunks)
+
+    async def ingest():
+        with cs.no_host_sync():
+            async for _ in top.map_chunk_batch(batch):
+                pass
+        from risingwave_tpu_torch.common import chunk_to_rows
+        out = []
+        async for c in top.on_barrier(Barrier.new(2)):
+            out.extend(chunk_to_rows(c, schema, with_ops=True))
+        return out
+
+    on_card = asyncio.run(ingest())
+    _, cpu_msgs = _kv_messages("cpu", 4, 5)
+    cpu_chunks = [m for m in cpu_msgs if not isinstance(m, Barrier)]
+    on_cpu = _ordered_output(topn("cpu", [Barrier.new(1)] + cpu_chunks
+                                  + [Barrier.new(2)]))
+    assert on_card == on_cpu and on_card
+
+
+def _dynamic_filter_max_run(device):
+    """``v >= (SELECT max(v) FROM t)``: a DynamicFilter whose RHS is a
+    SimpleAgg(max) over the same stream (tests/test_frontend.py's plan)."""
+    from risingwave_tpu_torch.common import INT64, Schema, make_chunk
+    from risingwave_tpu_torch.expr import agg
+    from risingwave_tpu_torch.stream import (
+        Barrier, DynamicFilterExecutor, MockSource, SimpleAggExecutor,
+    )
+    rng = np.random.default_rng(8)
+    schema = Schema.of(("k", INT64), ("v", INT64))
+    msgs = [Barrier.new(1)]
+    for e in range(5):
+        rows = [(e * 40 + i, int(rng.integers(0, 1000))) for i in range(40)]
+        msgs += [make_chunk(schema, rows, capacity=64, device=device),
+                 Barrier.new(e + 2)]
+    rhs = SimpleAggExecutor(MockSource(schema, msgs),
+                            [agg("max", 1, INT64)], device=device)
+    dyn = DynamicFilterExecutor(MockSource(schema, msgs), rhs, key_col=1,
+                                cmp="greater_than_or_equal", pk_indices=[0],
+                                table_capacity=1 << 10, out_capacity=64,
+                                device=device)
+    return _ordered_output(dyn)
+
+
+def test_dynamic_filter_fed_by_simple_agg_max_on_card_equals_cpu(cuda):
+    on_card = _dynamic_filter_max_run("cuda")
+    assert on_card == _dynamic_filter_max_run("cpu") and on_card
+
+
+def _varchar_minmax_run(device):
+    from risingwave_tpu_torch.common import VARCHAR
+    from risingwave_tpu_torch.expr import agg, count_star
+    from risingwave_tpu_torch.stream import HashAggExecutor, MockSource
+    schema, msgs = _kv_messages(device, 5, 3, strings=True)
+    calls = [agg("min", 1, VARCHAR), agg("max", 1, VARCHAR), count_star()]
+    hagg = HashAggExecutor(MockSource(schema, msgs), [0], calls,
+                           table_capacity=1 << 10, out_capacity=64,
+                           device=device)
+    return _ordered_output(hagg)
+
+
+def test_min_max_varchar_on_card_equals_cpu(cuda):
+    """MIN/MAX over VARCHAR (lanes reduced in rank << 32 | id space, the
+    rank table fetched per update as the dictionary grows) on the card
+    equals the CPU, row for row."""
+    on_card = _varchar_minmax_run("cuda")
+    assert on_card == _varchar_minmax_run("cpu") and on_card
