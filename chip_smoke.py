@@ -7,11 +7,13 @@ Phases (any failure exits non-zero and prints no result line):
   1. card and build — the card's name and power limit, then ``nvcc`` builds
      every kernel under ``risingwave_tpu_torch/csrc/`` (all in parallel);
   2. each kernel against its plain PyTorch version on the card, exactly
-     (integer counts, boolean masks, hash-table slots), and both timed, at
-     the inputs listed in ``RANK_CASES``, ``MATCH_CASES`` and
-     ``HASH_CASES`` (kernel B3's find-or-insert on both of its paths, the
-     float64 inputs also against the plain version on CPU copies; the
-     card's float64 → float32 cast of six NaN patterns beside the CPU's);
+     (integer counts, boolean masks, hash-table slots), and both timed
+     with a cold L2 (``time_cuda``; a kernel that reads under its bound
+     fails the run), at the inputs listed in ``RANK_CASES``,
+     ``MATCH_CASES`` and ``HASH_CASES`` (kernel B3's find-or-insert on
+     both of its paths, the float64 inputs also against the plain version
+     on CPU copies; the card's float64 → float32 cast of six NaN patterns
+     beside the CPU's);
   3. the NEXmark q7 core through the executor entry points (Project →
      HashAgg(max) → HashJoin(price = max)) at the benchmark's sizes, with
      the launch counts reset just before and read just after; the final
@@ -59,8 +61,9 @@ Phases (any failure exits non-zero and prints no result line):
      bucket width 2048, which must not grow) → Project → HashAgg(count,
      1<<19) → Project → TopN(limit 1000, 1<<19) → Materialize; the MV
      equal to numpy's top 1000 under (count desc, id asc, item_name asc by
-     string); kernel B1's inputs kept, its busiest one checked against the
-     plain version and timed with the kernels, and kernel B3's busiest
+     string); kernel B1's busiest input (the most keyed rows) kept,
+     checked against the plain version and timed with the kernels, and
+     kernel B3's busiest
      input at the agg's group table and at the TopN's row set (the call
      with the most valid rows, the latest of equals); the join arena's
      bytes, the TopN's fast flushes and refills;
@@ -79,17 +82,51 @@ Phases (any failure exits non-zero and prints no result line):
      the MV equal to the uninterrupted run's; checkpoint ms and recovery
      seconds; B3's busiest inputs at the GroupTopN's row set and group
      table kept;
- 16. profiled runs (q7 and q5 executors, two epochs of q105 and q18, one
-     fused q7, q5, q8 and q3 epoch): the device's busy share and top
-     kernels; then one JSON line of every kernel: launches on its paths'
-     runs, exact agreement, its time and its plain version's time on the
-     inputs its path gave it, and its bound on an H100 (for B1 also its
-     time and bound summed over every input of the q7 run, with each
-     input's count of keyed rows, and on q105's busiest input; B1's and
-     B3's launches on each path's run; B3 on the q5 compaction's input and
-     on the five inputs kept in phases 13-15, each also held against the
-     plain version slot for slot on both of its paths);
- 17. the last line: ``{"ok": true, "device": {...}}``.
+ 16. NEXmark q5 as its SQL reads, over HOP(date_time, 2 s, 10 s), in bench
+     form: two device generators of one seed, one per branch, each epoch
+     one ChunkBatch of 256 chunks per source; left RowIdGen → HopWindow →
+     Project → HashAgg(count(*), 1<<21), right the same → Project →
+     MaterializedAgg(max) (host tier) → Project, joined on (starttime,
+     num) (1<<15 keys × bucket width 4096, kernels B1 and B3) → Project →
+     Materialize; a warm-up, three timed epochs and one whose ingest
+     (RowIdGen, HopWindow, Project, the count aggs) runs under the sync
+     check; the MV equal to numpy's q5, flags clear, no table grown; the
+     rows into the MaterializedAgg per epoch, the table loads; kernel B3's
+     busiest input at each count agg and B1's at the join kept;
+ 17. the EOWC running window (sum(price) and row_number() per auction by
+     date_time, EMIT ON WINDOW CLOSE) over the host bids of phases 13-14
+     with WATERMARK FOR date_time AS date_time - 4 s: RowIdGen →
+     WatermarkFilter → Sort (the device row set, 1<<18, B3) →
+     EowcOverWindow → Project → Materialize; the MV equal to numpy's over
+     the rows below the final watermark; then over state tables, every
+     barrier a checkpoint, dropped after epoch 2 and recovered: the same
+     MV; the Sort's high-water mark of held rows, checkpoint ms, recovery
+     seconds; B3's busiest input at the Sort's row set kept;
+ 18. NEXmark q13 over the same bids: a 10,000-row side table loaded
+     through Values → Materialize, then RowIdGen → Project(auction %
+     10000) → TemporalJoin → Project → Materialize; the MV equal to numpy's
+     lookup;
+ 19. bids → AppendOnlyDedup(auction, bidder) (1<<21 slots, B3) →
+     Materialize in bench form, the MV equal to numpy's first bid per
+     pair; one chunk with duplicate keys through B3 on both of its paths
+     (``is_new`` on each new key's lowest row); a checkpoint, drop and
+     recovery through B3 giving the same MV; B3's busiest input kept;
+ 20. Expand (two subsets), ProjectSet(generate_series(1, price % 4)),
+     Union of two bid sources with watermarks (the minimum re-emitted),
+     Values and Now, each equal to numpy's;
+ 21. each kernel and its plain version timed on the inputs its path gave
+     it, as in phase 2 (B1 on q7's, q105's and q5_hop's busiest inputs and
+     summed over every input of the q7 run, with each input's count of
+     keyed rows; B2 on the fused q7 run's last flush; B3 on the q5
+     compaction's input and on the nine inputs kept in phases 13-19, each
+     also held against the plain version slot for slot on both of its
+     paths); then profiled runs (q7 and q5 executors, two epochs of q105,
+     q18, the EOWC running window and q5 over HOP windows, one fused q7,
+     q5, q8 and q3 epoch): the device's busy share and top kernels; then
+     one JSON line of every kernel: launches on its paths' runs (B1's and
+     B3's on each path's run), exact agreement, its time and its plain
+     version's, and its bound on an H100;
+ 22. the last line: ``{"ok": true, "device": {...}}``.
 
 It imports nothing of JAX and nothing of the JAX package.
 """
@@ -151,6 +188,21 @@ Q105_BUCKET_WIDTH = 2048
 Q105_AGG_CAPACITY = 1 << 19      # ~205,000 (id, item_name) groups
 Q105_TOPN_CAPACITY = 1 << 19
 Q18_TABLE_CAPACITY = 1 << 19     # every bid is a row (5 epochs: 327,680)
+# q5 over HOP windows (phase 16; slide and size: nexmark_plans.HOP_SLIDE,
+# HOP_SIZE): the phase-9 device bids. Each count agg ends 5 epochs of 256
+# chunks with ~1.28M (window, auction) groups in its 1<<21 table
+# (Q5_TABLE_CAPACITY); the join holds ~13,400 (window_start, num) keys, the
+# largest ~2,000 rows
+Q5_HOP_CHUNKS_PER_EPOCH = 256
+Q5_HOP_KEY_CAPACITY = 1 << 15
+Q5_HOP_BUCKET_WIDTH = 4096
+# the EOWC running window (phase 17; nexmark_plans.EOWC_DELAY, 4 s): the
+# Sort holds the bids inside the delay (4 s at 10,000 bids/s) plus one
+# epoch (65,536), twice over, rounded up to a power of two
+EOWC_SORT_CAPACITY = 1 << 18
+# the dedup's key table (phase 19: ~602,000 (auction, bidder) pairs in 4
+# epochs of 256 chunks)
+DEDUP_TABLE_CAPACITY = 1 << 21
 # (N, W, ident pattern) — each compared exactly with the plain version;
 # N = 32768 is above what kernel B1 sorts in one block's shared memory;
 # probe_256 and few_257 are chunks whose rows mostly have ident < 0
@@ -189,6 +241,9 @@ NAN_PATTERNS = {0x7FF8000000000000: 0x7FC00000, 0xFFF8000000000000: 0xFFC00000,
 # H100 SXM published peaks (NVIDIA data sheet)
 HBM_BYTES_PER_S = 3.35e12
 INT8_TC_OPS_PER_S = 1979e12
+L2_FLUSH_BYTES = 128 << 20   # a copy this size evicts the 50 MB L2
+LEAD_CYCLES = 1_000_000      # ~0.5 ms of spin: the host's lead on the card
+CYCLES_PER_MS = 2_000_000    # the H100's SM clock is at most 1.98 GHz
 
 
 def card_line() -> str:
@@ -260,12 +315,15 @@ def check_rank_totals(device) -> int:
             raise AssertionError(f"rank_totals differs from plain at "
                                  f"N={n} W={w} {pattern}")
         worst = max(worst, err)
-        ms, _ = time_cuda(lambda: rank_totals(ident, matches))
-        plain_ms, _ = time_cuda(lambda: rank_totals_plain(ident, matches),
-                                iters=10 if n > CHUNK else 50)
+        ms, _, timing = time_cuda(lambda: rank_totals(ident, matches))
+        plain_ms, _, plain_timing = time_cuda(
+            lambda: rank_totals_plain(ident, matches),
+            iters=10 if n > CHUNK else 50)
+        bound_ms = rank_totals_bound(ident, matches)[0]
+        held_to_bound(f"rank_totals N={n} W={w} {pattern}", ms, bound_ms)
         print(f"rank_totals N={n} W={w} {pattern}: max_abs_err={err} "
-              f"kernel_ms={ms} bound_ms={rank_totals_bound(ident, matches)[0]}"
-              f" plain_ms={plain_ms}")
+              f"kernel_ms={ms} bound_ms={bound_ms} plain_ms={plain_ms} "
+              f"timing={timing_label(timing, plain_timing)}")
         del r0, t0
     return worst
 
@@ -311,11 +369,15 @@ def check_interval_match(device) -> int:
         if err:
             raise AssertionError(f"interval_match differs from plain at "
                                  f"nb={nb} W={w} {pattern}: {err} cells")
-        ms, _ = time_cuda(lambda: interval_match(*args))
-        plain_ms, _ = time_cuda(lambda: interval_match_plain(*args))
+        ms, _, timing = time_cuda(lambda: interval_match(*args))
+        plain_ms, _, plain_timing = time_cuda(
+            lambda: interval_match_plain(*args))
+        bound_ms = interval_match_bound(nb, w)[0]
+        held_to_bound(f"interval_match nb={nb} W={w} {pattern}", ms,
+                      bound_ms)
         print(f"interval_match nb={nb} W={w} {pattern}: cells_differing=0 "
-              f"kernel_ms={ms} plain_ms={plain_ms} "
-              f"bound_ms={interval_match_bound(nb, w)[0]}")
+              f"kernel_ms={ms} plain_ms={plain_ms} bound_ms={bound_ms} "
+              f"timing={timing_label(timing, plain_timing)}")
     return 0
 
 
@@ -676,17 +738,17 @@ def check_hash_probe(device, time_it: bool = True) -> dict:
                                      f"on {name}, {path} path: {err} "
                                      f"differences")
         if op == "insert":
-            def kernel():
-                ht_lookup_or_insert(table.clone(), cols, valid)
+            def kernel(t):
+                ht_lookup_or_insert(t, cols, valid)
 
-            def plain():
-                ht_lookup_or_insert_plain(table.clone(), cols, valid)
+            def plain(t):
+                ht_lookup_or_insert_plain(t, cols, valid)
         else:
-            def kernel():
-                ht_lookup(table, cols, valid)
+            def kernel(t):
+                ht_lookup(t, cols, valid)
 
-            def plain():
-                ht_lookup_plain(table, cols, valid)
+            def plain(t):
+                ht_lookup_plain(t, cols, valid)
         bound_ms, bound_by = hash_probe_bound(table, cols, valid, s0, f0, op)
         floor_ms = hash_probe_floor(table, cols, valid, s0, f0, op)
         line = (f"hash_probe {op} {name}: N={valid.shape[0]} "
@@ -694,63 +756,125 @@ def check_hash_probe(device, time_it: bool = True) -> dict:
                 f"overflow={bool(o0)} hits_or_new={int(f0.sum())} "
                 f"bound_ms={bound_ms} sector_floor_ms={floor_ms}")
         if time_it:
-            ms, plain_ms, call_ms = probe_times(kernel, plain)
+            ms, plain_ms, call_ms, timing = probe_times(kernel, plain,
+                                                        table)
+            held_to_bound(f"hash_probe {op} {name}", ms, bound_ms)
             # the claim rounds of the phased path's last (timed) call
             rounds = last_claim_rounds(device) \
                 if op == "insert" and valid.shape[0] <= CHUNK else None
             line += (f" kernel_ms={ms} call_ms={call_ms} "
-                     f"plain_ms={plain_ms} claim_rounds={rounds}")
+                     f"plain_ms={plain_ms} timing={timing} "
+                     f"claim_rounds={rounds}")
             if name in ("q5", "find_hits_misses"):
                 timings[op] = {"ms": ms, "plain_ms": plain_ms,
-                               "call_ms": call_ms, "bound_ms": bound_ms,
+                               "call_ms": call_ms, "timing": timing,
+                               "bound_ms": bound_ms,
                                "bound_by": bound_by, "floor_ms": floor_ms,
                                "claim_rounds": rounds, "case": name}
         print(line)
     return timings
 
 
-def probe_times(kernel, plain):
-    """(kernel ms, plain ms, kernel call ms) per call: the device time of
-    every kernel each call ran (from the profiler), less the table copies
-    (``Memcpy``) that give each call a fresh table, and the CUDA-event time
-    of the kernel's call."""
-    def device_ms(fn):
-        per = {}
-        time_cuda(fn, iters=20, by_kernel=per)
-        return sum(v for k, v in per.items() if not k.startswith("Memcpy"))
-    _, call_ms = time_cuda(kernel, iters=20)
-    return device_ms(kernel), device_ms(plain), call_ms
+def probe_times(kernel, plain, table):
+    """(kernel ms, plain ms, kernel call ms, timing) per find-or-insert
+    call, as ``time_cuda`` reads them: each call on its own copy of
+    ``table``, made before the timed loops."""
+    ms, call_ms, k_timing = time_cuda(kernel, iters=20,
+                                      fresh=lambda: (table.clone(),))
+    plain_ms, _, p_timing = time_cuda(plain, iters=20,
+                                      fresh=lambda: (table.clone(),))
+    return ms, plain_ms, call_ms, timing_label(k_timing, p_timing)
 
 
-def time_cuda(fn, iters: int = 50, warmup: int = 5, by_kernel=None):
-    """Milliseconds per call after a warm-up: (device, wall). ``device`` is
-    the summed self time of every kernel the calls ran, from the profiler's
-    CUDA trace (the card's own work, free of Python launch cost); ``wall``
-    is CUDA-event time around the loop, which a host-bound call inflates.
-    ``device`` is None if the profiler recorded no kernel. A dict given as
-    ``by_kernel`` receives each kernel's share, by name."""
+def timing_label(kernel: str, plain: str) -> str:
+    """How a kernel's and its plain version's device times were read
+    (``time_cuda``'s ``timing``): one label, or "kernel: ..., plain: ..."
+    where they differ."""
+    if kernel == plain:
+        return kernel
+    return f"kernel: {kernel}, plain: {plain}"
+
+
+def time_cuda(fn, iters: int = 50, warmup: int = 5, by_kernel=None,
+              fresh=None):
+    """Milliseconds per call, ``(device, wall, timing)``. A call is
+    ``fn(*fresh())``: ``fresh`` makes each call's own arguments (a copy of
+    a table the call changes), all of a loop's before that loop starts, so
+    no copy is timed; without it ``fn()``.
+
+    ``device`` is the card's own work per call with a cold L2: before every
+    call a device copy of ``L2_FLUSH_BYTES`` (a ``Memcpy``, left out)
+    evicts the 50 MB L2, as the path's caller finds it after a chunk's or
+    an epoch's other work; then the summed self time of every other kernel
+    the calls ran, from the profiler's CUDA trace (``timing`` "profiler").
+    Where the trace lost kernels (none recorded, or a kernel's count not a
+    whole multiple of the calls), CUDA events recorded just before and
+    after each call give it instead (``timing`` "events", with the counts
+    the trace held); a spin after each flush, of ``LEAD_CYCLES`` or twice
+    ``wall`` if longer, gives the host its lead, so the events bracket the
+    call's device work and its launch latency (and the waits of a call
+    that syncs inside). ``wall`` is CUDA-event time around a loop of
+    back-to-back calls without flushes, which a host-bound call inflates.
+    A dict given as ``by_kernel`` receives each kernel's share of
+    ``device``, by name, from the profiler."""
+    from torch.profiler import ProfilerActivity, profile
+    make = fresh or tuple
+    src = torch.empty(L2_FLUSH_BYTES, dtype=torch.uint8, device="cuda")
+    dst = torch.empty_like(src)
     for _ in range(warmup):
-        fn()
+        fn(*make())
+    argv = [make() for _ in range(iters)]
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     start.record()
-    for _ in range(iters):
-        fn()
+    for args in argv:
+        fn(*args)
     end.record()
     torch.cuda.synchronize()
     wall = start.elapsed_time(end) / iters
-    from torch.profiler import ProfilerActivity, profile
+
+    argv = [make() for _ in range(iters)]
+    torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
+        for args in argv:
+            dst.copy_(src)
+            fn(*args)
         torch.cuda.synchronize()
-    per = {e.key: e.self_device_time_total / 1e3 / iters
-           for e in prof.key_averages()
-           if getattr(e, "self_device_time_total", 0) > 0}
-    if by_kernel is not None:
-        by_kernel.update(per)
-    return (sum(per.values()) if per else None), wall
+    per, counts = {}, set()
+    for e in prof.key_averages():
+        if getattr(e, "self_device_time_total", 0) > 0 \
+                and not e.key.startswith("Memcpy"):
+            per[e.key] = e.self_device_time_total / 1e3 / iters
+            counts.add(e.count)
+    if per and all(c % iters == 0 for c in counts):
+        if by_kernel is not None:
+            by_kernel.update(per)
+        return sum(per.values()), wall, "profiler"
+
+    argv = [make() for _ in range(iters)]
+    marks = [(torch.cuda.Event(enable_timing=True),
+              torch.cuda.Event(enable_timing=True)) for _ in argv]
+    lead = max(LEAD_CYCLES, int(2 * wall * CYCLES_PER_MS))
+    torch.cuda.synchronize()
+    for args, (a, b) in zip(argv, marks):
+        dst.copy_(src)
+        torch.cuda._sleep(lead)
+        a.record()
+        fn(*args)
+        b.record()
+    torch.cuda.synchronize()
+    return (sum(a.elapsed_time(b) for a, b in marks) / iters, wall,
+            f"events (trace counts {sorted(counts)} of {iters} calls)")
+
+
+def held_to_bound(name: str, ms: float, bound_ms: float) -> None:
+    """Fail when a kernel's device time reads under its bound: no call
+    moves its bytes faster than the memory rate, so such a reading is a
+    fault of the measurement."""
+    if ms < bound_ms:
+        raise AssertionError(f"{name}: {ms} ms reads under its bound of "
+                             f"{bound_ms} ms")
 
 
 def rank_totals_bound(ident: torch.Tensor, matches: torch.Tensor):
@@ -892,6 +1016,43 @@ def captured_rank_inputs():
         join_state.rank_totals = rt_mod.rank_totals
 
 
+@contextlib.contextmanager
+def busiest_rank_input():
+    """Kernel B1's input with the most keyed rows (ident >= 0) among the
+    joins run inside the block, kept on the card with ``torch.where`` (no
+    host sync; the latest of equals). After the block the dict it yields
+    holds ``input`` (ident, matches), ``keyed_rows`` and ``calls``."""
+    from risingwave_tpu_torch.ops import join_state
+    rt_mod = importlib.import_module("risingwave_tpu_torch.ops.rank_totals")
+    best: dict = {}     # matches shape -> [keyed count, ident, matches]
+    calls = [0]
+    found: dict = {}
+
+    def capturing(ident, matches):
+        calls[0] += 1
+        sig = tuple(matches.shape)
+        count = (ident >= 0).sum()
+        if sig not in best:
+            best[sig] = [count, ident.clone(), matches.clone()]
+        else:
+            kept = best[sig]
+            better = count >= kept[0]
+            kept[0] = torch.where(better, count, kept[0])
+            kept[1].copy_(torch.where(better, ident, kept[1]))
+            kept[2].copy_(torch.where(better, matches, kept[2]))
+        return rt_mod.rank_totals(ident, matches)
+
+    join_state.rank_totals = capturing
+    try:
+        yield found
+    finally:
+        join_state.rank_totals = rt_mod.rank_totals
+    if best:
+        count, ident, matches = max(best.values(), key=lambda b: int(b[0]))
+        found.update(input=(ident, matches), keyed_rows=int(count),
+                     calls=calls[0])
+
+
 def run_q7_capturing(chunks, device):
     """Drive the q7 executor over ``chunks`` with every kernel-B1 input
     kept: (output multiset, seconds after the warm-up barrier, B1 launches
@@ -915,38 +1076,49 @@ def keyed_rows(captured) -> list[int]:
 def captured_probe_inputs(sites: dict):
     """Kernel B3's busiest find-or-insert input at each call site run inside
     the block: ``sites`` maps a label to the module whose
-    ``ht_lookup_or_insert`` is watched. The dict it yields receives, per
-    label, (table, key columns, valid) as they were just before the call
-    with the most valid rows (the latest of equals, so the fullest table).
-    Every call keeps its candidate on the card with ``torch.where``, so the
-    watch makes no host sync; the choice among chunk shapes is read once,
-    after the block."""
+    ``ht_lookup_or_insert`` is watched, or to (module, table) to watch only
+    the calls on that table. The dict it yields receives, per label,
+    (table, key columns, valid) as they were just before the call with the
+    most valid rows (the latest of equals, so the fullest table). Every
+    call keeps its candidate on the card with ``torch.where``, so the watch
+    makes no host sync; the choice among chunk shapes is read once, after
+    the block."""
     from risingwave_tpu_torch.common import Column
     from risingwave_tpu_torch.ops import hash_table as ht
-    mods = {label: importlib.import_module(m) for label, m in sites.items()}
+    by_module: dict = {}     # module path -> [(label, table or None)]
+    for label, site in sites.items():
+        path, only = (site, None) if isinstance(site, str) else site
+        by_module.setdefault(path, []).append((label, only))
+    mods = {path: importlib.import_module(path) for path in by_module}
     best: dict = {}      # (label, shape signature) -> [count, tensors]
     found: dict = {}
 
-    def watch(label):
+    def watch(entries):
         def capturing(table, cols, valid, *args, **kw):
-            sig = (label, table.capacity, valid.shape[0],
-                   tuple(c.data.dtype for c in cols))
-            now = ([*table.key_data, *table.key_mask, table.occupied]
-                   + [t for c in cols for t in (c.data, c.mask)] + [valid])
-            count = valid.sum()
-            if sig not in best:
-                best[sig] = [count, [t.clone() for t in now]]
-            else:
-                kept = best[sig]
-                better = count >= kept[0]
-                kept[0] = torch.where(better, count, kept[0])
-                for dst, src in zip(kept[1], now):
-                    dst.copy_(torch.where(better, src, dst))
+            label = next((lb for lb, only in entries
+                          if only is None or only is table), None)
+            if label is not None:
+                keep_busiest(label, table, cols, valid)
             return ht.ht_lookup_or_insert(table, cols, valid, *args, **kw)
         return capturing
 
-    for label, mod in mods.items():
-        mod.ht_lookup_or_insert = watch(label)
+    def keep_busiest(label, table, cols, valid):
+        sig = (label, table.capacity, valid.shape[0],
+               tuple(c.data.dtype for c in cols))
+        now = ([*table.key_data, *table.key_mask, table.occupied]
+               + [t for c in cols for t in (c.data, c.mask)] + [valid])
+        count = valid.sum()
+        if sig not in best:
+            best[sig] = [count, [t.clone() for t in now]]
+        else:
+            kept = best[sig]
+            better = count >= kept[0]
+            kept[0] = torch.where(better, count, kept[0])
+            for dst, src in zip(kept[1], now):
+                dst.copy_(torch.where(better, src, dst))
+
+    for path, mod in mods.items():
+        mod.ht_lookup_or_insert = watch(by_module[path])
     try:
         yield found
     finally:
@@ -1403,19 +1575,28 @@ class DeviceBidSource:
     barrier is a checkpoint."""
 
     def __init__(self, gen, sizes, first_epoch: int,
-                 checkpoint: bool = False, watermarks=None):
+                 checkpoint: bool = False, watermarks=None,
+                 sync_checked=()):
         from risingwave_tpu_torch.connector import BID_SCHEMA
         self.schema = BID_SCHEMA
         self.gen, self.sizes, self.first_epoch = gen, sizes, first_epoch
         self.checkpoint = checkpoint
         self.watermarks = watermarks or {}
+        self.sync_checked = set(sync_checked)
 
     async def execute(self):
+        """A batch listed in ``sync_checked`` (by its index in ``sizes``) is
+        yielded with synchronizing CUDA calls made errors, until the next
+        message is asked for: the single-input executors downstream ingest
+        it inside that window, up to the first that holds it to a
+        barrier."""
         from risingwave_tpu_torch.stream import Barrier, Watermark
         epoch = self.first_epoch
         yield Barrier.new(epoch, checkpoint=self.checkpoint)
-        for k in self.sizes:
-            yield self.gen.next_batch(k)
+        for i, k in enumerate(self.sizes):
+            batch = self.gen.next_batch(k)
+            with no_host_sync(i in self.sync_checked):
+                yield batch
             epoch += 1
             if epoch in self.watermarks:
                 yield Watermark(5, self.watermarks[epoch])
@@ -1431,15 +1612,16 @@ def bench_gen(device):
                               device=device)
 
 
-def bench_bids(device, sizes):
-    """(auction, price, date_time) on the host of the batches of
-    ``sizes[i]`` chunks a bench generator draws first, drawn again by a
-    generator of the same seed (outside any timed window)."""
+def bench_bids(device, sizes, idx=(0, 2, 5)):
+    """Columns ``idx`` (by default auction, price, date_time) on the host
+    of the batches of ``sizes[i]`` chunks a bench generator draws first,
+    drawn again by a generator of the same seed (outside any timed
+    window)."""
     gen = bench_gen(device)
-    cols = [[], [], []]
+    cols = [[] for _ in idx]
     for k in sizes:
         batch = gen.next_batch(k).chunk
-        for out, j in zip(cols, (0, 2, 5)):
+        for out, j in zip(cols, idx):
             out.append(batch.columns[j].data.reshape(-1).cpu().numpy())
     return [np.concatenate(c) for c in cols]
 
@@ -1827,15 +2009,16 @@ def probe_input_times(name: str, table, cols, valid,
                                  f"{path} path: {err} differences")
     bound_ms, bound_by = hash_probe_bound(table, cols, valid, s0, f0,
                                           "insert")
-    ms, plain_ms, call_ms = probe_times(
-        lambda: ht_lookup_or_insert(table.clone(), cols, valid),
-        lambda: ht_lookup_or_insert_plain(table.clone(), cols, valid))
+    ms, plain_ms, call_ms, timing = probe_times(
+        lambda t: ht_lookup_or_insert(t, cols, valid),
+        lambda t: ht_lookup_or_insert_plain(t, cols, valid), table)
+    held_to_bound(f"hash_probe on {name}", ms, bound_ms)
     return {"n": int(valid.shape[0]), "live": int(valid.sum()),
             "cap": table.capacity, "occupied": int(table.occupied.sum()),
             "new": int(f0.sum()), "overflow": bool(o0),
             "paths": list(paths), "differences": 0, "ms": ms,
-            "plain_ms": plain_ms, "call_ms": call_ms, "bound_ms": bound_ms,
-            "bound_by": bound_by}
+            "plain_ms": plain_ms, "call_ms": call_ms, "timing": timing,
+            "bound_ms": bound_ms, "bound_by": bound_by}
 
 
 def run_fused(runner, timed_epochs: int):
@@ -1933,13 +2116,12 @@ def run_q105(device, auctions, bids) -> dict:
     → HashAgg(count) → Project → TopN(limit 1000) → Materialize, one
     warm-up and three timed epochs of 16 chunks per source; the MV equal to
     numpy's top 1000 under (count desc, id asc, item_name asc by string).
-    Kernel B1's inputs are kept, and kernel B3's busiest input at the
-    agg's group table and at the TopN's row set; the busiest B1 input and
-    the B3 inputs are returned."""
+    Kernel B1's busiest input is kept, and kernel B3's busiest input at
+    the agg's group table and at the TopN's row set; all are returned."""
     rt_mod = importlib.import_module("risingwave_tpu_torch.ops.rank_totals")
     plan = nexmark_plan("q105", device, auctions, bids)
     arena = tensor_bytes(plan.join.state)
-    with captured_rank_inputs() as captured, captured_probe_inputs({
+    with busiest_rank_input() as b1_input, captured_probe_inputs({
             "q105 HashAgg groups": "risingwave_tpu_torch.ops.grouped_agg",
             "q105 TopN rows": "risingwave_tpu_torch.ops.row_set",
     }) as b3_inputs:
@@ -1959,9 +2141,6 @@ def run_q105(device, auctions, bids) -> dict:
         raise AssertionError(f"q105 MV differs from numpy's top "
                              f"{Q105_LIMIT}: {len(set(got) - set(want))} "
                              f"extra, {len(set(want) - set(got))} missing")
-    keyed = keyed_rows(captured)
-    busiest = max(range(len(captured)), key=lambda i: keyed[i])
-    ident, matches = captured[busiest]
     timed_rows = 2 * (NEX_EPOCHS - 1) * NEX_CHUNKS_PER_EPOCH * CHUNK
     return {"groups": len(counts), "mv_rows": len(got),
             "source_rows_per_s": timed_rows / secs,
@@ -1970,9 +2149,9 @@ def run_q105(device, auctions, bids) -> dict:
             "bucket_width": plan.join.core.W, "join_arena_bytes": arena,
             "n_fast_flushes": plan.top_n.n_fast_flushes,
             "n_refills": plan.top_n.n_refills, "b1_launches": b1,
-            "b3_launches": b3, "b1_calls": len(captured),
-            "b1_busiest_keyed_rows": keyed[busiest],
-            "b1_input": (ident, matches), "b3_inputs": b3_inputs}
+            "b3_launches": b3, "b1_calls": b1_input["calls"],
+            "b1_busiest_keyed_rows": b1_input["keyed_rows"],
+            "b1_input": b1_input["input"], "b3_inputs": b3_inputs}
 
 
 def run_q102(device, auctions, bids) -> dict:
@@ -2147,6 +2326,538 @@ def run_q18(device) -> dict:
             "b3_inputs": b3_inputs}
 
 
+# ---------------------------------------------------------------------------
+# phases 16-20: q5 over HOP windows, the EOWC running window, q13, the
+# dedup stream and the small operators
+# ---------------------------------------------------------------------------
+
+async def drive_marks(executor) -> list[float]:
+    """Run ``executor`` to its end; the host clock after each barrier it
+    emits, the card synchronized first."""
+    from risingwave_tpu_torch.stream import Barrier
+    marks = []
+    async for m in executor.execute():
+        if isinstance(m, Barrier):
+            torch.cuda.synchronize()
+            marks.append(time.perf_counter())
+    return marks
+
+
+def q5_hop_plan(device, sources):
+    """q5 over HOP(date_time, 2 s, 10 s) at the phase's sizes: both count
+    aggs at Q5_TABLE_CAPACITY, the join at Q5_HOP_KEY_CAPACITY keys ×
+    Q5_HOP_BUCKET_WIDTH."""
+    from risingwave_tpu_torch.storage import MemoryStateStore, StateTable
+    from risingwave_tpu_torch.stream import nexmark_plans as plans
+    mv = StateTable(MemoryStateStore(), 1, plans.q5_hop_schema(), [2, 0, 3])
+    return plans.q5_hop(*sources, mv, agg_capacity=Q5_TABLE_CAPACITY,
+                        key_capacity=Q5_HOP_KEY_CAPACITY,
+                        bucket_width=Q5_HOP_BUCKET_WIDTH,
+                        out_capacity=CHUNK, device=device)
+
+
+def q5_hop_expected(auction, ts) -> collections.Counter:
+    """numpy q5 over HOP windows: per window, the auctions with the most
+    bids, as (auction, num, window_start)."""
+    from risingwave_tpu_torch.stream.nexmark_plans import HOP_SIZE, HOP_SLIDE
+    n = HOP_SIZE // HOP_SLIDE
+    slot = np.floor_divide(ts, HOP_SLIDE)
+    lo = slot.min() - (n - 1)
+    span = auction.max() + 1
+    # (window, auction) as one int64: the window's slide index, then the
+    # auction
+    key = np.concatenate([(slot - i - lo) * span + auction
+                          for i in range(n)])
+    keys, counts = np.unique(key, return_counts=True)
+    win, auc = keys // span, keys % span
+    top = np.zeros(win.max() + 1, np.int64)
+    np.maximum.at(top, win, counts)
+    hit = counts == top[win]
+    return collections.Counter(zip(
+        auc[hit].tolist(), counts[hit].tolist(),
+        ((win[hit] + lo) * HOP_SLIDE).tolist()))
+
+
+def q5_hop_flags(plan) -> list[str]:
+    """Names of the sticky flags set in the plan's aggs and join."""
+    left, right, _ = plan.aggs
+    flags = {"left agg overflow": left.state.overflow,
+             "right agg overflow": right.state.overflow}
+    for side in ("left", "right"):
+        st = getattr(plan.join.state, side)
+        for f in ("ht_overflow", "lane_overflow", "inconsistent"):
+            flags[f"join {side} {f}"] = getattr(st, f)
+    return [k for k, v in flags.items() if bool(v)]
+
+
+def run_q5_hop(device) -> dict:
+    """Phase 16: q5 over HOP windows in bench form — two device generators
+    of one seed, one per branch; a warm-up epoch, FUSED_TIMED_EPOCHS timed
+    epochs and one more whose ingest (RowIdGen, HopWindow, Project and the
+    count aggs) runs under the sync check, each of Q5_HOP_CHUNKS_PER_EPOCH
+    chunks per source. The MV equal to numpy's q5 over the same bids,
+    every flag clear, no table grown. Kernel B3's busiest input at each
+    count agg and B1's at the join are returned."""
+    rt_mod = importlib.import_module("risingwave_tpu_torch.ops.rank_totals")
+    k = Q5_HOP_CHUNKS_PER_EPOCH
+    sizes = [k] * (2 + FUSED_TIMED_EPOCHS)
+    checked = {len(sizes) - 1}
+    plan = q5_hop_plan(device, [DeviceBidSource(bench_gen(device), sizes, 1,
+                                                sync_checked=checked)
+                                for _ in range(2)])
+    left, right, top = plan.aggs
+    mat_rows = [0]
+    top_map = top.map_chunk
+    top_barrier = top.on_barrier
+
+    async def counting_map(chunk):
+        mat_rows[-1] += int(chunk.vis.sum())
+        async for out in top_map(chunk):
+            yield out
+
+    async def counting_barrier(barrier):
+        async for out in top_barrier(barrier):
+            yield out
+        mat_rows.append(0)
+
+    top.map_chunk, top.on_barrier = counting_map, counting_barrier
+    with busiest_rank_input() as b1_input, captured_probe_inputs({
+            "q5_hop left count groups": (
+                "risingwave_tpu_torch.ops.grouped_agg", left.state.table),
+            "q5_hop right count groups": (
+                "risingwave_tpu_torch.ops.grouped_agg", right.state.table),
+    }) as b3_inputs:
+        b3_launches(reset=True)
+        rt_mod.rank_totals.launches = 0
+        marks = asyncio.run(drive_marks(plan.mv))
+        b1, b3 = rt_mod.rank_totals.launches, b3_launches()
+    flags = q5_hop_flags(plan)
+    if flags:
+        raise AssertionError(f"q5_hop flags set: {flags}")
+    if (plan.join.core.W, plan.join.core.capacity) != (
+            Q5_HOP_BUCKET_WIDTH, Q5_HOP_KEY_CAPACITY) or any(
+            a.state.table.capacity != Q5_TABLE_CAPACITY for a in (left, right)):
+        raise AssertionError(
+            f"a q5_hop table grew (join {plan.join.core.capacity} keys x "
+            f"{plan.join.core.W}, aggs "
+            f"{[a.state.table.capacity for a in (left, right)]}): size it "
+            "larger")
+    auction, _, ts = bench_bids(device, sizes)
+    want = q5_hop_expected(auction, ts)
+    rows = plan.mv.rows()
+    got = collections.Counter((r[0], r[1], r[2]) for r in rows)
+    if got != want or any(r[2] != r[3] for r in rows):
+        raise AssertionError(f"q5_hop MV differs from numpy's q5: "
+                             f"{sum((got - want).values())} extra, "
+                             f"{sum((want - got).values())} missing")
+    timed = marks[1 + FUSED_TIMED_EPOCHS] - marks[1]
+    bids = FUSED_TIMED_EPOCHS * k * CHUNK
+
+    def load(table):
+        return int(table.occupied.sum()) / table.capacity
+
+    return {"mv_rows": len(rows), "windows": len({w for _, _, w in want}),
+            "chunks_per_epoch": k, "source_rows_per_s": 2 * bids / timed,
+            "bids_per_s": bids / timed, "epoch_s": [
+                marks[i + 1] - marks[i] for i in range(len(marks) - 1)],
+            "b1_launches": b1, "b3_launches": b3,
+            "materialized_agg_rows_per_epoch": mat_rows[1:len(sizes) + 1],
+            "agg_loads": [load(a.state.table) for a in (left, right)],
+            "join_key_loads": [load(plan.join.state.left.ht),
+                               load(plan.join.state.right.ht)],
+            "join_max_bucket_rows": [
+                int(plan.join.state.left.occupied.sum(1).max()),
+                int(plan.join.state.right.occupied.sum(1).max())],
+            "bucket_width": plan.join.core.W, "sync_free_epoch": "ok",
+            "b1_input": b1_input, "b3_inputs": b3_inputs}
+
+
+def eowc_plan(device, src, store, state_tables: bool = False,
+              row_id_start: int = 0):
+    from risingwave_tpu_torch.storage import StateTable
+    from risingwave_tpu_torch.stream import nexmark_plans as plans
+    return plans.eowc_running(
+        src, StateTable(store, 1, plans.eowc_running_schema(), [5]),
+        sort_capacity=EOWC_SORT_CAPACITY,
+        out_capacity=CHUNK,
+        state_tables=(plans.eowc_running_state_tables(store)
+                      if state_tables else None),
+        row_id_start=row_id_start, device=device)
+
+
+def eowc_expected(bids) -> tuple[list, int]:
+    """numpy's EOWC running window and final watermark ``wm`` (the largest
+    max - delay over the chunks): the bids the WatermarkFilter keeps (each
+    chunk against max - delay of the chunks before it; row ids are given
+    before the filter), those below ``wm``, per auction by (date_time, row
+    id): (auction, price, date_time, running sum of price with peers
+    included, row number)."""
+    from risingwave_tpu_torch.stream.nexmark_plans import EOWC_DELAY
+    auction, price, ts = host_cols(bids, (0, 2, 5))
+    sizes = [int(c.vis.sum()) for c in bids]
+    rid = np.arange(len(ts))
+    chunk_of = np.repeat(np.arange(len(bids)), sizes)
+    chunk_max = np.array([t.max() for t in np.split(ts, np.cumsum(
+        sizes)[:-1])]) - EOWC_DELAY
+    after = np.maximum.accumulate(chunk_max)
+    before = np.concatenate([[np.iinfo(np.int64).min], after[:-1]])
+    wm = int(after[-1])
+    keep = (ts >= before[chunk_of]) & (ts < wm)
+    a, p, t, r = auction[keep], price[keep], ts[keep], rid[keep]
+    order = np.lexsort((r, t, a))
+    a, p, t = a[order], p[order], t[order]
+    n = len(a)
+    idx = np.arange(n)
+    new_part = np.r_[True, a[1:] != a[:-1]]
+    start = np.maximum.accumulate(np.where(new_part, idx, 0))
+    cum = np.cumsum(p)
+    part_cum = cum - np.r_[0, cum][start]
+    new_peer = new_part | np.r_[True, t[1:] != t[:-1]]
+    peer = np.cumsum(new_peer) - 1
+    peer_end = np.r_[np.nonzero(new_peer)[0][1:] - 1, n - 1]
+    rs = part_cum[peer_end[peer]]
+    return sorted(zip(a.tolist(), p.tolist(), t.tolist(), rs.tolist(),
+                      (idx - start + 1).tolist())), wm
+
+
+def run_eowc(device, bids) -> dict:
+    """Phase 17: the EOWC running window over the host generator's bids
+    (NEX_EPOCHS × NEX_CHUNKS_PER_EPOCH chunks, one warm-up epoch): RowIdGen
+    → WatermarkFilter(date_time - 4 s) → Sort (row set on the card, B3) →
+    EowcOverWindow(sum(price), row_number() per auction by date_time) →
+    Project → Materialize; the MV equal to numpy's. Then the same run over
+    state tables, every barrier a checkpoint, dropped after epoch 2 and
+    recovered: the MV equal to the uninterrupted run's. Kernel B3's
+    busiest input at the Sort's row set is returned."""
+    from risingwave_tpu_torch.connector import BID_SCHEMA
+    from risingwave_tpu_torch.storage import MemoryStateStore
+    from risingwave_tpu_torch.stream import eowc as eowc_mod
+    plan = eowc_plan(device, epoch_source(BID_SCHEMA, bids),
+                     MemoryStateStore())
+    with captured_probe_inputs({
+            "eowc Sort rows": "risingwave_tpu_torch.ops.row_set",
+    }) as b3_inputs:
+        b3_launches(reset=True)
+        _, secs = asyncio.run(drive(plan.mv, 2))
+        b3 = b3_launches()
+    want, wm = eowc_expected(bids)
+    if plan.watermark_filter.announced != wm:
+        raise AssertionError(f"eowc_running: the final watermark "
+                             f"{plan.watermark_filter.announced} differs "
+                             f"from numpy's {wm}")
+    got = sorted(r[:5] for r in plan.mv.rows())
+    if got != want:
+        raise AssertionError("eowc_running MV differs from numpy's running "
+                             "sum and row number")
+    uninterrupted = sorted(plan.mv.rows())
+    max_live = plan.sort.max_live
+    del plan
+
+    store = MemoryStateStore()
+    half = 2 * NEX_CHUNKS_PER_EPOCH
+    plan = eowc_plan(device, epoch_source(BID_SCHEMA, bids[:half],
+                                          checkpoint=True), store, True)
+    ckpt_ms = []
+    checkpoint = eowc_mod.rs_checkpoint
+
+    def timed_checkpoint(*args):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = checkpoint(*args)
+        ckpt_ms.append((time.perf_counter() - t0) * 1e3)
+        return out
+
+    eowc_mod.rs_checkpoint = timed_checkpoint
+    try:
+        asyncio.run(drain_into(plan.mv, Drain(), store))
+    finally:
+        eowc_mod.rs_checkpoint = checkpoint
+    del plan
+    torch.cuda.empty_cache()
+    b3_launches(reset=True)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    plan = eowc_plan(device, epoch_source(BID_SCHEMA, bids[half:], 3, True),
+                     store, True, row_id_start=half * CHUNK)
+    torch.cuda.synchronize()
+    recovery_s = time.perf_counter() - t0
+    recovery_b3 = b3_launches()
+    asyncio.run(drain_into(plan.mv, Drain(), store))
+    if sorted(plan.mv.rows()) != uninterrupted:
+        raise AssertionError("eowc_running recovery: the MV differs from "
+                             "the uninterrupted run's")
+    timed_rows = (NEX_EPOCHS - 1) * NEX_CHUNKS_PER_EPOCH * CHUNK
+    return {"mv_rows": len(got), "final_watermark": wm,
+            "source_rows_per_s": timed_rows / secs, "b3_launches": b3,
+            "sort_capacity": EOWC_SORT_CAPACITY, "sort_max_live": max_live,
+            "sort_checkpoint_ms": ckpt_ms, "recovery_s": recovery_s,
+            "recovery_b3_launches": recovery_b3, "b3_inputs": b3_inputs}
+
+
+def side_input_rows() -> list:
+    """q13's side table: key 0..SIDE_INPUT_KEYS-1, a value drawn from the
+    seed (the benchmark's side-input file is not in the repo)."""
+    from risingwave_tpu_torch.stream.nexmark_plans import SIDE_INPUT_KEYS
+    rng = np.random.default_rng(SEED)
+    return [(k, f"side-{int(v)}") for k, v in
+            enumerate(rng.integers(0, 1 << 30, SIDE_INPUT_KEYS))]
+
+
+def run_q13(device, bids) -> dict:
+    """Phase 18: q13 — the side table loaded through Values → Materialize
+    into its StateTable, then bids → RowIdGen → Project(auction % 10000) →
+    TemporalJoin → Project → Materialize over the host generator's bids;
+    the MV equal to numpy's lookup."""
+    from risingwave_tpu_torch.connector import BID_SCHEMA
+    from risingwave_tpu_torch.storage import MemoryStateStore, StateTable
+    from risingwave_tpu_torch.stream import (
+        Barrier, MaterializeExecutor, MockSource, ValuesExecutor,
+    )
+    from risingwave_tpu_torch.stream import nexmark_plans as plans
+    store = MemoryStateStore()
+    side = side_input_rows()
+    schema = plans.side_input_schema()
+    table = StateTable(store, 2, schema, [0])
+    load = MaterializeExecutor(ValuesExecutor(
+        schema, side, MockSource(schema, [Barrier.new(1),
+                                          Barrier.new(2, checkpoint=True)]),
+        capacity=CHUNK, device=device), table)
+    asyncio.run(drain_into(load, Drain(), store))
+    plan = plans.q13(epoch_source(BID_SCHEMA, bids, first_epoch=3), table,
+                     StateTable(store, 1, plans.q13_schema(), [5]),
+                     out_capacity=CHUNK, device=device)
+    _, secs = asyncio.run(drive(plan.mv, 2))
+    auction, bidder, price, ts = host_cols(bids, (0, 1, 2, 5))
+    values = [side[a % len(side)][1] for a in auction.tolist()]
+    want = sorted(zip(auction.tolist(), bidder.tolist(), price.tolist(),
+                      ts.tolist(), values))
+    got = sorted(r[:5] for r in plan.mv.rows())
+    if got != want:
+        raise AssertionError("q13 MV differs from numpy's side-input lookup")
+    timed_rows = (NEX_EPOCHS - 1) * NEX_CHUNKS_PER_EPOCH * CHUNK
+    return {"side_rows": len(side), "mv_rows": len(got),
+            "source_rows_per_s": timed_rows / secs}
+
+
+def dedup_plan(device, src, store, state_table: bool = False):
+    from risingwave_tpu_torch.connector import BID_SCHEMA
+    from risingwave_tpu_torch.storage import StateTable
+    from risingwave_tpu_torch.stream import nexmark_plans as plans
+    st = (StateTable(store, 2, plans.dedup_state_schema(), [0, 1])
+          if state_table else None)
+    return plans.dedup(src, StateTable(store, 1, BID_SCHEMA, [0, 1]),
+                       table_capacity=DEDUP_TABLE_CAPACITY, state_table=st,
+                       device=device)
+
+
+def dedup_mv(plan) -> list:
+    """(auction, bidder, price, date_time) of every MV row, sorted (the
+    stored physical values: none of them is a string)."""
+    return sorted((r[0], r[1], r[2], r[5])
+                  for r in plan.mv.table.scan_all())
+
+
+def check_first_wins(device) -> dict:
+    """One chunk of CHUNK rows with many rows per key (300 keys of two
+    columns, a tenth of the rows invalid, half the keys already in the
+    table) through kernel B3 on each of its paths: ``is_new`` must fall on
+    the lowest valid row of each absent key, and slots, flags and table
+    must equal the plain version's."""
+    from risingwave_tpu_torch.common import INT64
+    from risingwave_tpu_torch.ops.hash_table import (
+        ht_lookup_or_insert, ht_new,
+    )
+    rng = np.random.default_rng(SEED)
+    keys = rng.integers(0, 300, CHUNK)
+    valid = rng.random(CHUNK) < 0.9
+    arrays = [(keys, np.ones(CHUNK, bool)), (keys % 7, keys % 5 != 0)]
+    cols = _key_cols(arrays, device)
+    table = ht_new((INT64, INT64), 1 << 12, device)
+    old = np.arange(0, 300, 2)
+    ht_lookup_or_insert(table, _key_cols(
+        [(old, np.ones(len(old), bool)), (old % 7, old % 5 != 0)], device),
+        torch.ones(len(old), dtype=torch.bool, device=device))
+    first = np.zeros(CHUNK, bool)
+    seen = set()
+    for i in np.nonzero(valid)[0]:
+        if keys[i] % 2 and keys[i] not in seen:
+            first[i] = True
+        seen.add(keys[i])
+    valid_t = torch.as_tensor(valid, device=device)
+    out = {}
+    for path in B3_PATHS:
+        err, _ = compare_hash_probe(table, cols, valid_t, "insert", path)
+        _, _, is_new, _ = ht_lookup_or_insert(table.clone(), cols, valid_t,
+                                              path=path)
+        wrong = int((is_new.cpu().numpy() != first).sum())
+        if err or wrong:
+            raise AssertionError(f"B3 {path}: is_new off the lowest row on "
+                                 f"{wrong} rows, {err} differences")
+        out[path] = {"new_keys": int(first.sum()), "differences": 0}
+    return out
+
+
+def run_dedup(device) -> dict:
+    """Phase 19: bids → AppendOnlyDedup(auction, bidder) → Materialize in
+    bench form (the phase-9 device bids, DEDUP_TABLE_CAPACITY slots, one
+    warm-up and FUSED_TIMED_EPOCHS timed epochs): the MV equal to numpy's
+    first bid per pair; in-chunk duplicates through both B3 paths; then the
+    same epochs over a state table, dropped after epoch 2 and recovered
+    through B3: the same MV. Kernel B3's busiest input is returned."""
+    from risingwave_tpu_torch.storage import MemoryStateStore
+    sizes = [FUSED_CHUNKS_PER_EPOCH] * (1 + FUSED_TIMED_EPOCHS)
+    plan = dedup_plan(device, DeviceBidSource(bench_gen(device), sizes, 1),
+                      MemoryStateStore())
+    with captured_probe_inputs({
+            "dedup table": "risingwave_tpu_torch.stream.dedup",
+    }) as b3_inputs:
+        b3_launches(reset=True)
+        _, secs = asyncio.run(drive(plan.mv, 2))
+        b3 = b3_launches()
+    auction, bidder, price, ts = bench_bids(device, sizes, (0, 1, 2, 5))
+    _, first = np.unique(auction * (bidder.max() + 1) + bidder,
+                         return_index=True)
+    want = sorted(zip(auction[first].tolist(), bidder[first].tolist(),
+                      price[first].tolist(), ts[first].tolist()))
+    uninterrupted = dedup_mv(plan)
+    if uninterrupted != want:
+        raise AssertionError("dedup MV differs from numpy's first bid per "
+                             "(auction, bidder)")
+    load = int(plan.dedup.table.occupied.sum()) / DEDUP_TABLE_CAPACITY
+    del plan
+    first_wins = check_first_wins(device)
+
+    store = MemoryStateStore()
+    gen = bench_gen(device)
+    plan = dedup_plan(device, DeviceBidSource(gen, sizes[:2], 1, True), store,
+                      True)
+    asyncio.run(drain_into(plan.mv, Drain(), store))
+    del plan
+    torch.cuda.empty_cache()
+    b3_launches(reset=True)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    plan = dedup_plan(device, DeviceBidSource(gen, sizes[2:], 3, True), store,
+                      True)
+    torch.cuda.synchronize()
+    recovery_s = time.perf_counter() - t0
+    recovery_b3 = b3_launches()
+    asyncio.run(drain_into(plan.mv, Drain(), store))
+    if dedup_mv(plan) != uninterrupted:
+        raise AssertionError("dedup recovery: the MV differs from the "
+                             "uninterrupted run's")
+    timed_rows = FUSED_TIMED_EPOCHS * FUSED_CHUNKS_PER_EPOCH * CHUNK
+    return {"mv_rows": len(want), "table_load": load,
+            "source_rows_per_s": timed_rows / secs, "b3_launches": b3,
+            "first_wins": first_wins, "recovery_s": recovery_s,
+            "recovery_b3_launches": recovery_b3, "b3_inputs": b3_inputs}
+
+
+async def collect(executor) -> list:
+    """Every message ``executor`` emits, in order."""
+    return [m async for m in executor.execute()]
+
+
+def run_small_ops(device, bids) -> dict:
+    """Phase 20: Expand (two subsets), ProjectSet(generate_series(1, price
+    % 4)), Union of two bid sources with watermarks, Values and Now over
+    ``bids`` (NEX_CHUNKS_PER_EPOCH chunks); each equal to numpy's."""
+    from risingwave_tpu_torch.common import (
+        INT64, StreamChunk, chunk_to_rows,
+    )
+    from risingwave_tpu_torch.connector import BID_SCHEMA
+    from risingwave_tpu_torch.expr import Literal, call, col
+    from risingwave_tpu_torch.stream import (
+        Barrier, ExpandExecutor, MockSource, NowExecutor, ProjectSetExecutor,
+        TableFuncCall, UnionExecutor, ValuesExecutor, Watermark,
+    )
+    from risingwave_tpu_torch.stream import nexmark_plans as plans
+    out = {}
+    # Expand: per chunk one chunk per subset, other columns nulled
+    subsets = [(0, 2), (1, 5)]
+    msgs = asyncio.run(collect(ExpandExecutor(
+        MockSource(BID_SCHEMA, scripted(bids, len(bids))), subsets)))
+    chunks = [m for m in msgs if isinstance(m, StreamChunk)]
+    ok = torch.ones((), dtype=torch.bool, device=device)
+    for j, src in enumerate(bids):
+        for flag, subset in enumerate(subsets):
+            got = chunks[2 * j + flag]
+            ok &= (got.vis == src.vis).all() & (
+                got.columns[-1].data == flag).all()
+            for ci, c in enumerate(src.columns):
+                g = got.columns[ci]
+                keep = c.mask if ci in subset else torch.zeros_like(c.mask)
+                ok &= (g.mask == keep).all() & (
+                    ~keep | (g.data == c.data)).all()
+    if len(chunks) != 2 * len(bids) or not bool(ok):
+        raise AssertionError("Expand differs from its subsets")
+    out["expand_chunks"] = len(chunks)
+    # ProjectSet: generate_series(1, price % 4) per bid, element index kept
+    ps = ProjectSetExecutor(
+        MockSource(BID_SCHEMA, scripted(bids, len(bids))),
+        [col(0, INT64), TableFuncCall("generate_series", (
+            Literal(1, INT64), call("modulus", col(2, INT64),
+                                    Literal(4, INT64)))),
+         Literal(0, INT64)], ("auction", "g", "_pidx"), out_capacity=CHUNK,
+        device=device)
+    t0 = time.perf_counter()
+    drain = Drain()
+    for m in asyncio.run(collect(ps)):
+        if isinstance(m, StreamChunk):
+            drain.add(m)
+    ps_s = time.perf_counter() - t0
+    auction, price = host_cols(bids, (0, 2))
+    m = price % 4
+    g = np.concatenate([np.arange(1, k + 1) for k in m.tolist()])
+    rows = np.stack([np.repeat(auction, m), g, g - 1], 1)
+    if drain.multiset() != counter_of(rows, np.ones(len(rows), np.int64)):
+        raise AssertionError("ProjectSet differs from numpy's series")
+    out["project_set_rows"] = len(rows)
+    out["project_set_rows_per_s"] = len(auction) / ps_s
+    # Union: two bid sources with watermarks; the minimum goes on
+    half = len(bids) // 2
+    srcs, last = [], []
+    for part, lag in ((bids[:half], 1_000_000), (bids[half:], 3_000_000)):
+        msgs, wm = [Barrier.new(1)], None
+        for i, c in enumerate(part):
+            wm = int(c.columns[5].data.max()) - lag
+            msgs += [c, Watermark(5, wm), Barrier.new(i + 2)]
+        srcs.append(MockSource(BID_SCHEMA, msgs))
+        last.append(wm)
+    drain = Drain()
+    wms = []
+    for m in asyncio.run(collect(UnionExecutor(srcs))):
+        if isinstance(m, StreamChunk):
+            drain.add(m)
+        elif isinstance(m, Watermark):
+            wms.append(m.value)
+    whole = Drain()
+    for c in bids:
+        whole.add(c)
+    if drain.multiset() != whole.multiset() or wms != sorted(set(wms)) \
+            or wms[-1] != min(last):
+        raise AssertionError("Union differs from its inputs or watermarks")
+    out["union_watermarks"] = len(wms)
+    # Values and Now
+    side = side_input_rows()[:CHUNK]
+    barriers = MockSource(BID_SCHEMA, [Barrier.new(e) for e in (1, 2, 3)])
+    vals = [r for m in asyncio.run(collect(ValuesExecutor(
+        plans.side_input_schema(), side, barriers, capacity=CHUNK,
+        device=device))) if isinstance(m, StreamChunk)
+        for r in chunk_to_rows(m, plans.side_input_schema())]
+    now_ex = NowExecutor(MockSource(BID_SCHEMA, [
+        Barrier.new(e) for e in (1, 2, 3)]), device=device)
+    now = asyncio.run(collect(now_ex))
+    now_rows = [chunk_to_rows(m, now_ex.schema, with_ops=True, physical=True)
+                for m in now if isinstance(m, StreamChunk)]
+    if vals != side or [m.value for m in now if isinstance(m, Watermark)] \
+            != [1_000_000, 2_000_000, 3_000_000] or now_rows[1] != [
+                (2, (1_000_000,)), (3, (2_000_000,))]:
+        raise AssertionError("Values or Now differ from their rows")
+    out["values_rows"] = len(vals)
+    return out
+
+
 def nexmark_plan(name: str, device, auctions, bids):
     """A fresh q105 or q18 plan at the phase's sizes over these chunks."""
     from risingwave_tpu_torch.connector import AUCTION_SCHEMA, BID_SCHEMA
@@ -2164,8 +2875,9 @@ def nexmark_plan(name: str, device, auctions, bids):
 
 
 def trace_plan(build, n_chunks: int) -> dict:
-    """Two epochs of a fresh plan under the profiler's CUDA trace (the
-    first included), as ``trace_summary``."""
+    """A fresh plan driven to its end (every epoch of its sources, the
+    first included) under the profiler's CUDA trace, as
+    ``trace_summary``."""
     from torch.profiler import ProfilerActivity, profile
     plan = build()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
@@ -2178,13 +2890,11 @@ def trace_plan(build, n_chunks: int) -> dict:
 
 def kernel_times(kernel, plain, args):
     """(ms, plain_ms, call_ms, plain_call_ms, timing) of a kernel and its
-    plain version on ``args``: device times from the profiler, or CUDA
-    event times where the profiler recorded no kernel."""
-    ms, call_ms = time_cuda(lambda: kernel(*args))
-    plain_ms, plain_call_ms = time_cuda(lambda: plain(*args))
-    if ms is None or plain_ms is None:
-        return call_ms, plain_call_ms, call_ms, plain_call_ms, "events"
-    return ms, plain_ms, call_ms, plain_call_ms, "profiler"
+    plain version on ``args``, as ``time_cuda`` reads them."""
+    ms, call_ms, timing = time_cuda(lambda: kernel(*args))
+    plain_ms, plain_call_ms, plain_timing = time_cuda(lambda: plain(*args))
+    return (ms, plain_ms, call_ms, plain_call_ms,
+            timing_label(timing, plain_timing))
 
 
 def b3_launches(reset: bool = False) -> int:
@@ -2203,10 +2913,19 @@ def main() -> int:
               file=sys.stderr)
         return 2
     from risingwave_tpu_torch import kernels
+    from risingwave_tpu_torch.connector import BID_SCHEMA
     from risingwave_tpu_torch.ops import interval_join
+    from risingwave_tpu_torch.storage import MemoryStateStore
     rt_mod = importlib.import_module("risingwave_tpu_torch.ops.rank_totals")
     im_fn = interval_join.interval_match
     device = "cuda"
+    phase_s = {}        # wall seconds of each phase
+    clock = [time.perf_counter()]
+
+    def lap(name):
+        now = time.perf_counter()
+        phase_s[name] = now - clock[0]
+        clock[0] = now
 
     # -- phase 1: card and build
     card = card_line()
@@ -2216,12 +2935,16 @@ def main() -> int:
     for name, log in logs.items():
         print(f"nvcc {name}:\n{log.strip()}")
     print(f"build_s={build_s:.3f}")
+    lap("phase 1")
 
     # -- phase 2: kernels against their plain versions
     max_err = check_rank_totals(device)
+    lap("phase 2 rank_totals")
     match_err = check_interval_match(device)
+    lap("phase 2 interval_match")
     b3_timing = check_hash_probe(device)
     b3_paths = {}       # B3 launches of each path's run
+    lap("phase 2 hash_probe")
 
     # -- phase 3: q7 core; capture the kernel's busiest real input
     n_chunks = EPOCHS * CHUNKS_PER_EPOCH
@@ -2240,6 +2963,7 @@ def main() -> int:
           f"hash_probe.launches={b3_paths['q7 executor']}")
     if q7_launches <= 0:
         raise AssertionError("the q7 run never launched rank_totals")
+    lap("phase 3")
 
     # -- phase 4: q5 core
     q5 = q5_pipeline(chunks, device)
@@ -2250,6 +2974,7 @@ def main() -> int:
         raise AssertionError("q5 output differs from numpy group-by count")
     print(f"q5: groups={len(got5)} source_rows/s={timed_rows / secs5:.1f} "
           f"hash_probe.launches={b3_paths['q5 executor']}")
+    lap("phase 4")
 
     # -- phase 5: fused q7 at full width; then one more epoch, untimed,
     # whose body runs with synchronizing calls made errors and whose
@@ -2284,6 +3009,7 @@ def main() -> int:
     if q7f_launches <= 0:
         raise AssertionError("the fused q7 run never launched "
                              "interval_match")
+    lap("phase 5")
 
     # -- phase 6: fused q5 at full width; then one epoch whose body runs
     # with synchronizing calls made errors
@@ -2299,6 +3025,7 @@ def main() -> int:
     print(f"q5_fused: epochs={fq5.batch_no} groups={len(got5f)} "
           f"source_rows/s={rate5:.1f} hash_probe.launches="
           f"{b3_paths['fused q5']} sync_free_epoch=ok")
+    lap("phase 6")
 
     # -- phase 7: fused q8 at the bench's shape; then one epoch whose body
     # runs with synchronizing calls made errors
@@ -2311,6 +3038,7 @@ def main() -> int:
     print(f"q8_fused: epochs={fq8.batch_no} sessions={n_sessions} "
           f"source_rows/s={rate8:.1f} hash_probe.launches="
           f"{b3_paths['fused q8']} flags=clear sync_free_epoch=ok")
+    lap("phase 7")
 
     # -- phase 8: fused q3 at the bench's shape, the top-10 checked after
     # every epoch; a second run (fresh state, so the orders table stays at
@@ -2328,6 +3056,7 @@ def main() -> int:
     for path, n in b3_paths.items():
         if n <= 0:
             raise AssertionError(f"the {path} run never launched hash_probe")
+    lap("phase 8")
 
     # -- phase 9: the q5 executor in bench form (ChunkBatch ingest from the
     # device generator), one epoch's batched ingest under the sync check
@@ -2338,6 +3067,7 @@ def main() -> int:
           f"{q5b['source_rows_per_s']:.1f} busy_share="
           f"{q5b_trace['busy_share']} hash_probe.launches="
           f"{q5b['b3_launches']} sync_free_batch=ok [{card}]")
+    lap("phase 9")
 
     # -- phase 10: q5 checkpoint to a StateTable, watermark cleaning and
     # compaction of the 1<<21 table, drop and recovery
@@ -2347,6 +3077,7 @@ def main() -> int:
     print("q5_recovery: " + json.dumps(
         {k: v for k, v in q5r.items() if k != "compact_input"})
         + f" [{card}]")
+    lap("phase 10")
 
     # -- phase 11: the q7 executor in bench form, batched on both inputs
     q7b = run_q7_bench(device)
@@ -2358,12 +3089,14 @@ def main() -> int:
           f"{q7b['key_capacity']} bucket_width={q7b['bucket_width']} "
           f"rank_totals.launches={q7b['b1_launches']} hash_probe.launches="
           f"{q7b['b3_launches']} [{card}]")
+    lap("phase 11")
 
     # -- phase 12: q7 checkpoint to state tables, drop and recovery
     q7r = run_q7_recovery(device, q7b.pop("multiset"))
     b3_paths["q7 recovery"] = q7r["b3_launches"]
     b1_paths["q7 recovery"] = q7r["b1_launches"]
     print("q7_recovery: " + json.dumps(q7r) + f" [{card}]")
+    lap("phase 12")
 
     # -- phases 13-15: q105 (TopN), q102 (DynamicFilter over a
     # MaterializedAgg bound) and q18 (GroupTopN WITH TIES, batched ingest
@@ -2386,40 +3119,56 @@ def main() -> int:
     torch.cuda.empty_cache()
     q18r = run_q18(device)
     b3_inputs.update(q18r.pop("b3_inputs"))
-    if len(b3_inputs) != 5:
-        raise AssertionError(f"kernel B3 inputs kept only at "
-                             f"{sorted(b3_inputs)}")
     b3_paths["q18"] = q18r["b3_launches"]
     b3_paths["q18 recovery"] = q18r["recovery_b3_launches"]
     print("q18: " + json.dumps(q18r) + f" [{card}]")
+    lap("phases 13-15")
+
+    # -- phases 16-20: q5 over HOP windows (one epoch's ingest under the
+    # sync check), the EOWC running window and its recovery, q13, the
+    # dedup stream and its recovery, the small operators
+    torch.cuda.empty_cache()
+    q5h = run_q5_hop(device)
+    q5h_b1 = q5h.pop("b1_input")
+    b3_inputs.update(q5h.pop("b3_inputs"))
+    b1_paths["q5_hop"] = q5h["b1_launches"]
+    b3_paths["q5_hop"] = q5h["b3_launches"]
+    print("q5_hop: " + json.dumps(q5h) + f" [{card}]")
+    lap("phase 16")
+    torch.cuda.empty_cache()
+    eowc = run_eowc(device, nbids)
+    b3_inputs.update(eowc.pop("b3_inputs"))
+    b3_paths["eowc_running"] = eowc["b3_launches"]
+    b3_paths["eowc recovery"] = eowc["recovery_b3_launches"]
+    print("eowc_running: " + json.dumps(eowc) + f" [{card}]")
+    lap("phase 17")
+    print("q13: " + json.dumps(run_q13(device, nbids)) + f" [{card}]")
+    lap("phase 18")
+    torch.cuda.empty_cache()
+    dedup = run_dedup(device)
+    b3_inputs.update(dedup.pop("b3_inputs"))
+    b3_paths["dedup"] = dedup["b3_launches"]
+    b3_paths["dedup recovery"] = dedup["recovery_b3_launches"]
+    print("dedup: " + json.dumps(dedup) + f" [{card}]")
+    lap("phase 19")
+    print("small_ops: " + json.dumps(run_small_ops(
+        device, nbids[:NEX_CHUNKS_PER_EPOCH])) + f" [{card}]")
+    if len(b3_inputs) != 9:
+        raise AssertionError(f"kernel B3 inputs kept only at "
+                             f"{sorted(b3_inputs)}")
     for path, n in list(b3_paths.items()) + list(b1_paths.items()):
         if n <= 0:
             raise AssertionError(f"the {path} run never launched its "
                                  "kernel")
+    lap("phase 20")
 
-    # -- phase 16: where the time goes (device busy share)
-    head = chunks[:2 * CHUNKS_PER_EPOCH]
-    print("q7_trace: " + json.dumps(trace(q7_pipeline, head, device)))
-    print("q5_trace: " + json.dumps(trace(q5_pipeline, head, device)))
-    two = 2 * NEX_CHUNKS_PER_EPOCH
-    print("q105_trace: " + json.dumps(trace_plan(lambda: nexmark_plan(
-        "q105", device, auctions[:two], nbids[:two]), 2 * two)))
-    print("q18_trace: " + json.dumps(trace_plan(lambda: nexmark_plan(
-        "q18", device, None, nbids[:two]), two)))
-    del auctions, nbids
-    torch.cuda.empty_cache()
-    print("q7_fused_trace: " + json.dumps(trace_fused(fq7)))
-    b3_epoch_ms = {}    # B3's device ms in one fused epoch of each path
-    for path, runner in (("q5", fq5), ("q8", fq8), ("q3", fq3b)):
-        summary = trace_fused(runner)
-        b3_epoch_ms[f"fused {path}"] = summary["b3_ms"]
-        print(f"{path}_fused_trace: " + json.dumps(summary))
-    fq3b.check()
-
-    # kernel times on the inputs their path gave them: B1 on the q7 run's
-    # input with the most keyed rows, B2 on the fused q7 run's last flush,
-    # B3 on the q5 input of HASH_CASES, the q5 compaction's input and the
-    # busiest input of each row set and group table of q105, q102 and q18
+    # -- phase 21: kernel times on the inputs their path gave them: B1 on
+    # the q7 run's input with the most keyed rows and the busiest inputs of
+    # q105 and q5_hop, B2 on the fused q7 run's last flush, B3 on the q5
+    # input of HASH_CASES, the q5 compaction's input and the busiest input
+    # of each row set and group table of phases 13-19. They come before
+    # the traces: after a trace of ~140,000 device ops later profiler
+    # sessions came back short of kernels.
     ident, matches = max(captured, key=lambda im: int((im[0] >= 0).sum()))
     n, w = matches.shape
     for kern, plain in zip(rt_mod.rank_totals(ident, matches),
@@ -2430,6 +3179,7 @@ def main() -> int:
     ms, plain_ms, call_ms, plain_call_ms, timing = kernel_times(
         rt_mod.rank_totals, rt_mod.rank_totals_plain, (ident, matches))
     bound_ms, bound_by, dense_ms = rank_totals_bound(ident, matches)
+    held_to_bound("rank_totals on q7's input", ms, bound_ms)
     # B1 on q105's busiest input (its join at bucket width 2048)
     for kern, plain in zip(rt_mod.rank_totals(*q105_input),
                            rt_mod.rank_totals_plain(*q105_input)):
@@ -2444,16 +3194,37 @@ def main() -> int:
     q105_b1.update(shape=list(q105_input[1].shape),
                    keyed_rows=q105r["b1_busiest_keyed_rows"],
                    bound_ms=rank_totals_bound(*q105_input)[0])
+    held_to_bound("rank_totals on q105's input", q105_b1["ms"],
+                  q105_b1["bound_ms"])
     print("rank_totals q105 input: " + json.dumps(q105_b1))
+    # B1 on q5_hop's busiest input (its join at bucket width 4096)
+    q5h_input = q5h_b1["input"]
+    for kern, plain in zip(rt_mod.rank_totals(*q5h_input),
+                           rt_mod.rank_totals_plain(*q5h_input)):
+        max_err = max(max_err, int((kern - plain).abs().max()))
+    if max_err:
+        raise AssertionError("rank_totals differs from plain on q5_hop's "
+                             "input")
+    q5h_b1_t = dict(zip(("ms", "plain_ms", "call_ms", "plain_call_ms",
+                         "timing"),
+                        kernel_times(rt_mod.rank_totals,
+                                     rt_mod.rank_totals_plain, q5h_input)))
+    q5h_b1_t.update(shape=list(q5h_input[1].shape),
+                    keyed_rows=q5h_b1["keyed_rows"], calls=q5h_b1["calls"],
+                    bound_ms=rank_totals_bound(*q5h_input)[0])
+    held_to_bound("rank_totals on q5_hop's input", q5h_b1_t["ms"],
+                  q5h_b1_t["bound_ms"])
+    print("rank_totals q5_hop input: " + json.dumps(q5h_b1_t))
     # B1 over every input of the q7 run, one call each: its device time on
     # the path, and the bound summed the same way
-    path_ms, _ = time_cuda(
+    path_ms, _, path_timing = time_cuda(
         lambda: [rt_mod.rank_totals(*im) for im in captured], iters=10)
     path_bound_ms = sum(rank_totals_bound(*im)[0] for im in captured)
+    held_to_bound("rank_totals over q7's inputs", path_ms, path_bound_ms)
     keyed = keyed_rows(captured)
     print(f"rank_totals q7 inputs: calls={len(captured)} "
           f"path_ms={path_ms} path_bound_ms={path_bound_ms} "
-          f"keyed_rows={keyed}")
+          f"timing={path_timing} keyed_rows={keyed}")
     match_err += mask_errors(im_fn(*match_input),
                              interval_join.interval_match_plain(*match_input))
     if match_err:
@@ -2463,6 +3234,8 @@ def main() -> int:
     m_ms, m_plain_ms, m_call_ms, m_plain_call_ms, m_timing = kernel_times(
         im_fn, interval_join.interval_match_plain, match_input)
     m_bound_ms, m_bound_by = interval_match_bound(nb, lanes)
+    held_to_bound("interval_match on the fused q7 flush input", m_ms,
+                  m_bound_ms)
     ins, find = b3_timing["insert"], b3_timing["find"]
     compact_b3 = compact_probe_times(q5r["compact_input"])
     print("hash_probe compact input: " + json.dumps(compact_b3))
@@ -2475,6 +3248,38 @@ def main() -> int:
     epochs = {"fused q5": FUSED_TIMED_EPOCHS + 1,
               "fused q8": Q8_Q3_TIMED_EPOCHS + 1,
               "fused q3": Q8_Q3_TIMED_EPOCHS + 1}
+    lap("phase 21 kernel times")
+
+    # -- phase 21, continued: where the time goes (device busy share)
+    head = chunks[:2 * CHUNKS_PER_EPOCH]
+    print("q7_trace: " + json.dumps(trace(q7_pipeline, head, device)))
+    print("q5_trace: " + json.dumps(trace(q5_pipeline, head, device)))
+    two = 2 * NEX_CHUNKS_PER_EPOCH
+    print("q105_trace: " + json.dumps(trace_plan(lambda: nexmark_plan(
+        "q105", device, auctions[:two], nbids[:two]), 2 * two)))
+    print("q18_trace: " + json.dumps(trace_plan(lambda: nexmark_plan(
+        "q18", device, None, nbids[:two]), two)))
+    print("eowc_running_trace: " + json.dumps(trace_plan(lambda: eowc_plan(
+        device, epoch_source(BID_SCHEMA, nbids[:two]), MemoryStateStore()),
+        two)))
+    torch.cuda.empty_cache()
+    # one epoch of each source: the trace holds ~145,000 device ops
+    k = Q5_HOP_CHUNKS_PER_EPOCH
+    print("q5_hop_trace: " + json.dumps(trace_plan(lambda: q5_hop_plan(
+        device, [DeviceBidSource(bench_gen(device), [k], 1)
+                 for _ in range(2)]), 2 * k)))
+    del auctions, nbids
+    torch.cuda.empty_cache()
+    print("q7_fused_trace: " + json.dumps(trace_fused(fq7)))
+    b3_epoch_ms = {}    # B3's device ms in one fused epoch of each path
+    for path, runner in (("q5", fq5), ("q8", fq8), ("q3", fq3b)):
+        summary = trace_fused(runner)
+        b3_epoch_ms[f"fused {path}"] = summary["b3_ms"]
+        print(f"{path}_fused_trace: " + json.dumps(summary))
+    fq3b.check()
+
+    lap("phase 21 traces")
+    print("phase_seconds: " + json.dumps(phase_s))
     print(card)
     print(json.dumps({"kernels": [{
         "name": "rank_totals", "route": "cuda",
@@ -2482,9 +3287,9 @@ def main() -> int:
         "replaces": "risingwave_tpu/ops/pallas_rank.py:85",
         "tpu_counterpart": "risingwave_tpu/ops/pallas_rank.py::_kernel",
         "path": "q7 executor; q7 executor (bench form); q7 recovery; "
-                "q105; q102",
+                "q105; q102; q5_hop",
         "launches": q7_launches, "path_launches": b1_paths,
-        "q105_input": q105_b1,
+        "q105_input": q105_b1, "q5_hop_input": q5h_b1_t,
         "equal": max_err == 0, "max_abs_err": max_err, "shape": [n, w],
         "ms": ms, "kernel_ms": ms, "plain_ms": plain_ms,
         "call_ms": call_ms, "plain_call_ms": plain_call_ms,
@@ -2514,14 +3319,15 @@ def main() -> int:
             "lax.while_loop with no Pallas kernel",
         "path": "q7 and q5 executors, fused q5, q8 and q3, q5 and q7 "
                 "executors in bench form, q5 recovery, q5 compact, q7 "
-                "recovery, q105, q102, q18, q18 recovery",
+                "recovery, q105, q102, q18, q18 recovery, q5_hop, "
+                "eowc_running, eowc recovery, dedup, dedup recovery",
         "launches": sum(b3_paths.values()), "path_launches": b3_paths,
         "launches_per_epoch": {p: b3_paths[p] / e
                                for p, e in epochs.items()},
         "equal": True, "max_abs_err": 0,
         "shape": [CHUNK, Q5_TABLE_CAPACITY], "input": ins["case"],
         "ms": ins["ms"], "kernel_ms": ins["ms"], "plain_ms": ins["plain_ms"],
-        "call_ms": ins["call_ms"], "timing": "profiler",
+        "call_ms": ins["call_ms"], "timing": ins["timing"],
         "bound_ms": ins["bound_ms"], "bound_us": ins["bound_ms"] * 1e3,
         "bound_by": ins["bound_by"], "sector_floor_ms": ins["floor_ms"],
         "claim_rounds": ins["claim_rounds"],

@@ -59,6 +59,9 @@ class StreamChunk:
     def with_columns(self, columns: Sequence[Column]) -> "StreamChunk":
         return self.replace(columns=tuple(columns))
 
+    def mask_vis(self, keep: torch.Tensor) -> "StreamChunk":
+        return self.replace(vis=self.vis & keep)
+
     def signs(self) -> torch.Tensor:
         """+1 for Insert/UpdateInsert, -1 for Delete/UpdateDelete, 0 for
         invisible rows: the delta weight of aggregation."""
@@ -100,6 +103,21 @@ def stack_chunks(chunks: Sequence[StreamChunk]) -> ChunkBatch:
               for i in range(len(chunks[0].columns)))))
 
 
+def interleave_chunks(chunks: Sequence[StreamChunk]) -> ChunkBatch:
+    """n chunks of [K, C] tensors (n outputs of each of K chunks) as one
+    ChunkBatch of K·n chunks: chunk-major, the n outputs inside."""
+    k, c = chunks[0].vis.shape
+
+    def stack(get):
+        return torch.stack([get(o) for o in chunks], 1).reshape(-1, c)
+
+    return ChunkBatch(StreamChunk(
+        stack(lambda o: o.ops), stack(lambda o: o.vis),
+        tuple(Column(stack(lambda o, j=j: o.columns[j].data),
+                     stack(lambda o, j=j: o.columns[j].mask))
+              for j in range(len(chunks[0].columns)))))
+
+
 def map_tensors(chunk: StreamChunk, f) -> StreamChunk:
     """The chunk with ``f`` applied to every tensor (ops, vis, each column's
     data and mask)."""
@@ -138,13 +156,14 @@ def make_chunk(
     cols = []
     for ci, field in enumerate(schema):
         t = field.type
-        data = np.full(capacity, t.null_sentinel(), t.np_dtype)
+        sentinel = t.null_sentinel()
+        values = [row[ci] for row in rows]
+        data = np.full(capacity, sentinel, t.np_dtype)
         mask = np.zeros(capacity, bool)
-        for ri, row in enumerate(rows):
-            v = row[ci]
-            if v is not None:
-                data[ri] = v if physical else t.to_physical(v)
-                mask[ri] = True
+        if n:
+            mask[:n] = [v is not None for v in values]
+            data[:n] = [sentinel if v is None else
+                        v if physical else t.to_physical(v) for v in values]
         cols.append(Column(torch.as_tensor(data, device=device),
                            torch.as_tensor(mask, device=device)))
     return StreamChunk(torch.as_tensor(ops_arr, device=device),
@@ -164,18 +183,22 @@ def chunk_to_rows(chunk: StreamChunk, schema: Schema,
 
     ``physical=True`` keeps the raw physical values (VARCHAR as its id),
     the state-table storage form."""
-    ops = chunk.ops.cpu().numpy()
     vis = chunk.vis.cpu().numpy()
-    datas = [c.data.cpu().numpy() for c in chunk.columns]
-    masks = [c.mask.cpu().numpy() for c in chunk.columns]
-    conv = [(lambda v: v.item()) if physical else schema[ci].type.to_python
-            for ci in range(len(schema))]
-    out = []
-    for i in np.nonzero(vis)[0]:
-        row = tuple(conv[ci](datas[ci][i]) if masks[ci][i] else None
-                    for ci in range(len(schema)))
-        out.append((int(ops[i]), row) if with_ops else row)
-    return out
+    idx = np.nonzero(vis)[0]
+    cols = []
+    for ci in range(len(schema)):
+        data = chunk.columns[ci].data.cpu().numpy()[idx]
+        mask = chunk.columns[ci].mask.cpu().numpy()[idx].tolist()
+        if physical:
+            cols.append([v if m else None
+                         for v, m in zip(data.tolist(), mask)])
+        else:
+            conv = schema[ci].type.to_python
+            cols.append([conv(v) if m else None for v, m in zip(data, mask)])
+    rows = list(zip(*cols)) if cols else [()] * len(idx)
+    if with_ops:
+        return list(zip(chunk.ops.cpu().numpy()[idx].tolist(), rows))
+    return rows
 
 
 def _update_units(chunk: StreamChunk):

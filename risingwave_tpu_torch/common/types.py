@@ -300,5 +300,9 @@ class Schema:
     def types(self) -> tuple[DataType, ...]:
         return tuple(f.type for f in self.fields)
 
+    @property
+    def names(self) -> tuple[str, ...]:
+        return tuple(f.name for f in self.fields)
+
     def concat(self, other: "Schema") -> "Schema":
         return Schema(self.fields + other.fields)

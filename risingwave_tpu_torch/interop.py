@@ -2,13 +2,16 @@
 
 Turns the reference's ``StreamChunk``, ``DeviceHashTable``, ``AggState``,
 ``JoinState``, ``IntervalJoinState``, ``SessionWindowState``, ``Q3State``,
-``RowSetState``, ``TopNState``, ``SimpleAggState`` and PRNG keys into this
-package's
-tensors on a given device. The reference
+``RowSetState``, ``TopNState``, ``SimpleAggState``, the AppendOnlyDedup
+table and PRNG keys into this package's tensors on a given device, and the
+host-tier states of the OverWindow executors (per-partition caches and EOWC
+accumulators) into this package's classes. The reference
 objects arrive as nested numpy arrays under the JAX field names: either the
 flax dataclasses with numpy leaves (``jax.tree_util.tree_map(np.asarray,
 state)``) or plain mappings. Nothing of JAX is imported here. The agg and
-join states carry their checkpoint marks and LRU stamps across too.
+join states carry their checkpoint marks and LRU stamps across too. Host
+states hold physical values, so a VARCHAR id in them is the reference's
+dictionary's: a caller carrying strings re-interns them.
 """
 
 from __future__ import annotations
@@ -27,6 +30,7 @@ from .ops.interval_join import IntervalJoinState, state_from_host
 from .ops.join_state import JoinSideState, JoinState
 from .ops.row_set import RowSetState
 from .ops import session_window, stream_q3
+from .stream.over_window import _Partition
 from .stream.simple_agg import SimpleAggState
 from .stream.top_n import TopNState
 
@@ -90,6 +94,39 @@ def topn_state_from_jax(state: Any, device=DEFAULT_DEVICE) -> TopNState:
         gid=_tensor(_get(state, "gid"), device).long(),
         cand=_tensor(_get(state, "cand"), device),
         t1=_tensor(_get(state, "t1"), device))
+
+
+def dedup_state_from_jax(executor: Any, device=DEFAULT_DEVICE) -> dict:
+    """An ``AppendOnlyDedupExecutor``'s device state (its ``table``,
+    ``ckpt_dirty``, ``overflow`` and ``saw_delete``), by field name."""
+    return {"table": hash_table_from_jax(_get(executor, "table"), device),
+            **{f: _tensor(_get(executor, f), device)
+               for f in ("ckpt_dirty", "overflow", "saw_delete")}}
+
+
+def over_window_state_from_jax(executor: Any) -> dict:
+    """An ``OverWindowExecutor``'s host state by field name: its partitions
+    (``_parts``: sorted entries with per-position values, accumulators and
+    dense ordinals, as this package's ``_Partition``), the pk index
+    (``_pk_loc``) and the emitted output (``_out``), copied as they are."""
+    parts = {}
+    for key, p in _get(executor, "_parts").items():
+        q = parts[key] = _Partition()
+        q.entries, q.vals, q.accs, q.dense = (
+            list(p.entries), list(p.vals), list(p.accs), list(p.dense))
+    return {"_parts": parts, "_pk_loc": dict(_get(executor, "_pk_loc")),
+            "_out": {k: dict(v) for k, v in _get(executor, "_out").items()}}
+
+
+def eowc_state_from_jax(executor: Any) -> dict:
+    """An ``EowcOverWindowExecutor``'s host state by field name: the
+    per-partition accumulators (``_accs``), the open peer groups
+    (``_pending``) and the watermark (``_wm``), copied as they are."""
+    return {"_accs": {k: {**st, "accs": list(st["accs"])}
+                      for k, st in _get(executor, "_accs").items()},
+            "_pending": {k: list(rows)
+                         for k, rows in _get(executor, "_pending").items()},
+            "_wm": _get(executor, "_wm")}
 
 
 def simple_agg_state_from_jax(state: Any,

@@ -181,12 +181,40 @@ def rs_finish_flush(state: RowSetState, in_set: torch.Tensor) -> RowSetState:
     return state
 
 
+def write_rows(state_table, datas, masks, live) -> None:
+    """Stage host rows (numpy columns ``datas``/``masks``) into
+    ``state_table``: an upsert where ``live``, else a delete. The native
+    row codec encodes them in one call where it is built."""
+    types = state_table.schema.types
+    from ..native import codec as native_codec
+    codec = native_codec()
+    if codec is not None:
+        live_idx = np.nonzero(live)[0]
+        dead_idx = np.nonzero(~live)[0]
+        pk = state_table.pk_indices
+        pk_d = [datas[i] for i in pk]
+        pk_m = [masks[i] for i in pk]
+        pk_t = [types[i] for i in pk]
+        puts = dict(zip(
+            codec.encode_keys(pk_d, pk_m, pk_t, live_idx),
+            codec.encode_value_rows(datas, masks, types, live_idx)))
+        state_table.stage_encoded(
+            puts, codec.encode_keys(pk_d, pk_m, pk_t, dead_idx))
+        return
+    for r in range(len(live)):
+        row = tuple(datas[c][r].item() if masks[c][r] else None
+                    for c in range(len(datas)))
+        if live[r]:
+            state_table.insert(row)
+        else:
+            state_table.delete(row)
+
+
 def rs_checkpoint(rows: RowSetState, state_table, epoch: int) -> RowSetState:
     """Incremental checkpoint: write only the slots touched since the last
     one (upsert live rows, delete tombstoned ones) and commit. The dirty
-    slots are picked on the device and copied to the host once; the native
-    row codec encodes them in one call where it is built. Clears
-    ``ckpt_dirty``."""
+    slots are picked on the device and copied to the host once
+    (``write_rows``). Clears ``ckpt_dirty``."""
     idx = rows.ckpt_dirty.nonzero().squeeze(1)
     if idx.numel():
         from ..stream.hash_agg import host_rows
@@ -194,30 +222,7 @@ def rs_checkpoint(rows: RowSetState, state_table, epoch: int) -> RowSetState:
         host = host_rows([c.data[idx] for c in rows.cols]
                          + [c.mask[idx] for c in rows.cols]
                          + [rows.live[idx]])
-        datas, masks, live = host[:n], host[n:2 * n], host[2 * n]
-        types = state_table.schema.types
-        from ..native import codec as native_codec
-        codec = native_codec()
-        if codec is not None:
-            live_idx = np.nonzero(live)[0]
-            dead_idx = np.nonzero(~live)[0]
-            pk = state_table.pk_indices
-            pk_d = [datas[i] for i in pk]
-            pk_m = [masks[i] for i in pk]
-            pk_t = [types[i] for i in pk]
-            puts = dict(zip(
-                codec.encode_keys(pk_d, pk_m, pk_t, live_idx),
-                codec.encode_value_rows(datas, masks, types, live_idx)))
-            state_table.stage_encoded(
-                puts, codec.encode_keys(pk_d, pk_m, pk_t, dead_idx))
-        else:
-            for r in range(len(live)):
-                row = tuple(datas[c][r].item() if masks[c][r] else None
-                            for c in range(n))
-                if live[r]:
-                    state_table.insert(row)
-                else:
-                    state_table.delete(row)
+        write_rows(state_table, host[:n], host[n:2 * n], host[2 * n])
         state_table.commit(epoch)
     rows.ckpt_dirty.zero_()
     return rows

@@ -15,3 +15,15 @@ from .simple_agg import (  # noqa: F401
 from .materialized_agg import MaterializedAggExecutor  # noqa: F401
 from .dynamic_filter import DynamicFilterExecutor  # noqa: F401
 from .materialize import MaterializeExecutor  # noqa: F401
+from .hop_window import HopWindowExecutor  # noqa: F401
+from .eowc import (  # noqa: F401
+    NowExecutor, SortExecutor, WatermarkFilterExecutor,
+)
+from .dedup import AppendOnlyDedupExecutor  # noqa: F401
+from .expand import ExpandExecutor  # noqa: F401
+from .project_set import ProjectSetExecutor, TableFuncCall  # noqa: F401
+from .over_window import (  # noqa: F401
+    EowcOverWindowExecutor, OverWindowExecutor, WindowCall,
+)
+from .union import UnionExecutor, ValuesExecutor  # noqa: F401
+from .temporal_join import TemporalJoinExecutor  # noqa: F401

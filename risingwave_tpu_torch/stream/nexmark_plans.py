@@ -1,5 +1,6 @@
-"""The executor trees of NEXmark q105, q102 and q18, built from this
-package's executors.
+"""The executor trees of NEXmark q105, q102, q18, q5 over HOP windows, an
+EOWC running window, q13 and a dedup stream, built from this package's
+executors.
 
 Each tree is the one the reference's planner builds for the query (its
 ``EXPLAIN``), executor for executor:
@@ -15,7 +16,29 @@ Each tree is the one the reference's planner builds for the query (its
     Project(divide);
   * q18 — the last bid of each (bidder, auction), ``RANK() OVER (PARTITION
     BY bidder, auction ORDER BY date_time DESC) <= 1``: bids → RowIdGen →
-    Project → GroupTopN(limit 1, WITH TIES) → Project → Materialize.
+    Project → GroupTopN(limit 1, WITH TIES) → Project → Materialize;
+  * q5_hop — NEXmark q5 as its SQL reads (HOP(bid, date_time, 2 s, 10 s)):
+    each branch on its own source of the same bids. Left: RowIdGen →
+    HopWindow → Project(window_start, auction) → HashAgg(count(*)) →
+    Project(auction, num, starttime); right: RowIdGen → HopWindow →
+    Project(auction, window_start) → HashAgg(count(*)) → Project →
+    MaterializedAgg(max) (its input retracts) → Project(maxn,
+    starttime_c); root: HashJoin(starttime, num = starttime_c, maxn) →
+    Project → Materialize;
+  * eowc_running — ``SELECT auction, price, date_time, sum(price) OVER w,
+    row_number() OVER w FROM bid EMIT ON WINDOW CLOSE`` (w: PARTITION BY
+    auction ORDER BY date_time) over a source with ``WATERMARK FOR
+    date_time AS date_time - INTERVAL '4' SECOND``: RowIdGen →
+    WatermarkFilter → Sort → EowcOverWindow → Project → Materialize;
+  * q13 — ``SELECT B.auction, B.bidder, B.price, B.date_time, S.value FROM
+    bid B JOIN side_input FOR SYSTEM_TIME AS OF PROCTIME() S ON
+    mod(B.auction, 10000) = S.key``: RowIdGen → Project (the key
+    ``auction % 10000``) → TemporalJoin on the side table's StateTable →
+    Project → Materialize (built by hand: the reference planner takes only
+    a column = column condition for a temporal join);
+  * dedup — bids → AppendOnlyDedup(auction, bidder) → Materialize: the
+    first bid of each (auction, bidder) (by hand: no rule of the reference
+    planner builds AppendOnlyDedup).
 
 Sources are executors that yield the connector's chunks (or ChunkBatches);
 ``with_row_id`` appends the hidden ``_row_id`` pk column and numbers it,
@@ -33,21 +56,35 @@ import torch
 
 from .. import DEFAULT_DEVICE
 from ..common.chunk import ChunkBatch, Column, StreamChunk
-from ..common.types import INT64, SERIAL, Field, Schema
-from ..expr.agg import AggCall, count_star
-from ..expr.expr import call, col
+from ..common.types import INT64, SERIAL, TIMESTAMP, VARCHAR, Field, Schema
+from ..expr.agg import AggCall, agg, count_star
+from ..expr.expr import Literal, call, col
 from ..ops.join_state import JoinType
 from ..ops.topn import OrderSpec
 from ..storage.state_table import StateTable
+from .dedup import AppendOnlyDedupExecutor
 from .dynamic_filter import DynamicFilterExecutor
+from .eowc import SortExecutor, WatermarkFilterExecutor
 from .executor import Executor, SingleInputExecutor
 from .hash_agg import HashAggExecutor
 from .hash_join import HashJoinExecutor
+from .hop_window import HopWindowExecutor
 from .materialize import MaterializeExecutor
 from .materialized_agg import MaterializedAggExecutor
+from .over_window import EowcOverWindowExecutor, WindowCall, eowc_acc_schema
 from .project import ProjectExecutor
 from .row_id_gen import RowIdGenExecutor
+from .temporal_join import TemporalJoinExecutor
 from .top_n import TopNExecutor
+
+SECOND = 1_000_000
+#: q5's HOP(date_time, INTERVAL '2' SECOND, INTERVAL '10' SECOND)
+HOP_SLIDE = 2 * SECOND
+HOP_SIZE = 10 * SECOND
+#: WATERMARK FOR date_time AS date_time - INTERVAL '4' SECOND
+EOWC_DELAY = 4 * SECOND
+#: q13's side table: keys 0..SIDE_INPUT_KEYS-1, joined on auction % it
+SIDE_INPUT_KEYS = 10_000
 
 
 class RowIdAppend(SingleInputExecutor):
@@ -97,6 +134,11 @@ class Plan:
     join: Optional[HashJoinExecutor] = None
     top_n: Optional[TopNExecutor] = None
     dynamic_filter: Optional[DynamicFilterExecutor] = None
+    #: q5_hop: (left count, right count, max) aggs
+    aggs: tuple = ()
+    watermark_filter: Optional[WatermarkFilterExecutor] = None
+    sort: Optional[SortExecutor] = None
+    dedup: Optional[AppendOnlyDedupExecutor] = None
 
 
 def _join_agg(auction: Executor, bid: Executor, key_capacity: int,
@@ -181,6 +223,146 @@ def q18(bid: Executor, mv_table: StateTable, *,
     named = _project(top, (0, 1, 2, 3, 4),
                      ("auction", "bidder", "price", "date_time", "_pk0"))
     return Plan(MaterializeExecutor(named, mv_table), top_n=top)
+
+
+def _hop(bid: Executor, device) -> HopWindowExecutor:
+    """bids, with row ids, over HOP(date_time, HOP_SLIDE, HOP_SIZE)."""
+    return HopWindowExecutor(with_row_id(bid, 0, device), 5, HOP_SLIDE,
+                             HOP_SIZE)
+
+
+def q5_hop(bid: Executor, bid_right: Executor, mv_table: StateTable, *,
+           agg_capacity: int = 1 << 16, key_capacity: int = 1 << 13,
+           bucket_width: int = 16, out_capacity: int = 1024,
+           device=DEFAULT_DEVICE) -> Plan:
+    """``bid_right``: a second source of the same bids (the right branch's
+    scan). ``mv_table``: schema ``q5_hop_schema()``, pk (2, 0, 3)."""
+    left_win = _project(_hop(bid, device), (8, 0),
+                        ("window_start", "auction"))
+    left_count = HashAggExecutor(left_win, [0, 1], [count_star()],
+                                 table_capacity=agg_capacity,
+                                 out_capacity=out_capacity, device=device)
+    left = _project(left_count, (1, 2, 0), ("auction", "num", "starttime"))
+    right_win = _project(_hop(bid_right, device), (0, 8),
+                         ("auction", "window_start"))
+    right_count = HashAggExecutor(right_win, [0, 1], [count_star()],
+                                  table_capacity=agg_capacity,
+                                  out_capacity=out_capacity, device=device)
+    counts = _project(right_count, (1, 2), ("starttime_c", "num"))
+    max_num = MaterializedAggExecutor(counts, [0], [agg("max", 1, INT64)],
+                                      out_capacity=out_capacity,
+                                      device=device)
+    right = _project(max_num, (1, 0), ("maxn", "starttime_c"))
+    join = HashJoinExecutor(left, right, [2, 1], [1, 0], JoinType.INNER,
+                            key_capacity=key_capacity,
+                            bucket_width=bucket_width,
+                            out_capacity=out_capacity, device=device)
+    named = _project(join, (0, 1, 2, 4),
+                     ("auction", "num", "_pk0", "_pk1"))
+    return Plan(MaterializeExecutor(named, mv_table), join=join,
+                aggs=(left_count, right_count, max_num))
+
+
+def eowc_running(bid: Executor, mv_table: StateTable, *,
+                 sort_capacity: int = 1 << 16,
+                 out_capacity: int = 1024, state_tables=None,
+                 row_id_start: int = 0, device=DEFAULT_DEVICE) -> Plan:
+    """``mv_table``: schema ``eowc_running_schema()``, pk (5,).
+    ``state_tables``: ``eowc_running_state_tables(store)`` (the watermark,
+    Sort, accumulator and buffer tables) or None. ``row_id_start``: the
+    bids' first row id."""
+    wm_st, sort_st, acc_st, buf_st = state_tables or (None,) * 4
+    rows = with_row_id(bid, row_id_start, device)
+    filtered = WatermarkFilterExecutor(rows, 5, EOWC_DELAY,
+                                       state_table=wm_st, device=device)
+    sort = SortExecutor(filtered, time_col=5, pk_indices=[7],
+                        state_table=sort_st, table_capacity=sort_capacity,
+                        out_capacity=out_capacity, device=device)
+    win = EowcOverWindowExecutor(sort, running_calls(), pk_indices=[7],
+                                 acc_table=acc_st, buffer_table=buf_st,
+                                 out_capacity=out_capacity, device=device)
+    named = _project(win, (0, 2, 5, 8, 9, 7),
+                     ("auction", "price", "date_time", "rs", "rn", "_pk0"))
+    return Plan(MaterializeExecutor(named, mv_table),
+                watermark_filter=filtered, sort=sort)
+
+
+def running_calls() -> tuple:
+    """sum(price) and row_number() OVER (PARTITION BY auction ORDER BY
+    date_time), as the reference binder types them."""
+    order = (OrderSpec(5),)
+    return (WindowCall("sum", INT64, arg=2, partition_by=(0,),
+                       order_by=order),
+            WindowCall("row_number", INT64, partition_by=(0,),
+                       order_by=order))
+
+
+def eowc_running_state_tables(store, first_id: int = 2) -> tuple:
+    """The watermark, Sort, accumulator and buffer tables of
+    ``eowc_running`` (ids from ``first_id``), in the reference's layouts."""
+    from ..connector.nexmark import BID_SCHEMA
+    rows = BID_SCHEMA.concat(Schema((Field("_row_id", SERIAL),)))
+    wm = Schema((Field("id", INT64), Field("watermark", TIMESTAMP)))
+    return (StateTable(store, first_id, wm, [0]),
+            StateTable(store, first_id + 1, rows, [7]),
+            StateTable(store, first_id + 2,
+                       eowc_acc_schema(rows, running_calls()), [0]),
+            StateTable(store, first_id + 3, rows, [7]))
+
+
+def side_input_schema() -> Schema:
+    return Schema((Field("key", INT64), Field("value", VARCHAR)))
+
+
+def q13(bid: Executor, side_table: StateTable, mv_table: StateTable, *,
+        out_capacity: int = 1024, device=DEFAULT_DEVICE) -> Plan:
+    """``side_table``: schema ``side_input_schema()``, pk (0,), loaded
+    before the first probe. ``mv_table``: schema ``q13_schema()``, pk
+    (5,)."""
+    rows = with_row_id(bid, 0, device)
+    keyed = ProjectExecutor(
+        rows, [col(i, rows.schema[i].type) for i in (0, 1, 2, 5, 7)]
+        + [call("modulus", col(0, INT64), Literal(SIDE_INPUT_KEYS, INT64))],
+        ("auction", "bidder", "price", "date_time", "_row_id", "key"))
+    join = TemporalJoinExecutor(keyed, side_table, [5], [0],
+                                out_capacity=out_capacity, device=device)
+    named = _project(join, (0, 1, 2, 3, 7, 4),
+                     ("auction", "bidder", "price", "date_time", "value",
+                      "_pk0"))
+    return Plan(MaterializeExecutor(named, mv_table))
+
+
+def dedup(bid: Executor, mv_table: StateTable, *,
+          table_capacity: int = 1 << 16, state_table=None,
+          device=DEFAULT_DEVICE) -> Plan:
+    """``mv_table``: the bid schema, pk (0, 1). ``state_table``: the
+    dedup's (schema ``dedup_state_schema()``, pk (0, 1)) or None."""
+    first = AppendOnlyDedupExecutor(bid, [0, 1], state_table=state_table,
+                                    table_capacity=table_capacity,
+                                    device=device)
+    return Plan(MaterializeExecutor(first, mv_table), dedup=first)
+
+
+def dedup_state_schema() -> Schema:
+    from ..connector.nexmark import BID_SCHEMA
+    return Schema((BID_SCHEMA[0], BID_SCHEMA[1]))
+
+
+def q5_hop_schema() -> Schema:
+    return Schema((Field("auction", INT64), Field("num", INT64),
+                   Field("_pk0", TIMESTAMP), Field("_pk1", TIMESTAMP)))
+
+
+def eowc_running_schema() -> Schema:
+    return Schema((Field("auction", INT64), Field("price", INT64),
+                   Field("date_time", TIMESTAMP), Field("rs", INT64),
+                   Field("rn", INT64), Field("_pk0", SERIAL)))
+
+
+def q13_schema() -> Schema:
+    from ..connector.nexmark import BID_SCHEMA
+    return Schema(tuple(BID_SCHEMA[i] for i in (0, 1, 2, 5))
+                  + (Field("value", VARCHAR), Field("_pk0", SERIAL)))
 
 
 def q105_schema() -> Schema:

@@ -21,9 +21,10 @@ empty table twice as large. Where a find-or-insert input has more than
 phased path forced onto it is timed too ("new_phased"). Each version is
 checked slot for slot against the plain version on every input, then
 timed in the order old..., new, new_phased, new_phased, new, ...old with
-``chip_smoke.time_cuda``: device time from the profiler's CUDA trace,
-summed over a call's kernels, less the table copies that give each
-find-or-insert a fresh table. The phased calls also report the claim
+``chip_smoke.time_cuda``: device time with L2 evicted before each call,
+each find-or-insert on its own table copy made before the timed loop,
+from the profiler's CUDA trace (or CUDA events where the trace lost
+kernels; ``<tag>_timing`` says which). The phased calls also report the claim
 rounds their last call ran. With ``--fused`` the inputs are instead every
 16th find-or-insert of one fused q5, q8 and q3 epoch (after a warm-up
 epoch), as those paths give them to the kernel; each line also gives the
@@ -263,15 +264,15 @@ def compare(name, op, case, versions) -> dict:
     for tag in tags + tags[::-1]:
         v = versions[tag]
         if op == "insert":
-            def call():
-                v.insert(table.clone(), cols, valid)
+            def call(t):
+                v.insert(t, cols, valid)
         else:
-            def call():
-                v.find(table, cols, valid)
-        per = {}
-        cs.time_cuda(call, iters=20, by_kernel=per)
-        line.setdefault(f"{tag}_ms", []).append(
-            sum(t for k, t in per.items() if not k.startswith("Memcpy")))
+            def call(t):
+                v.find(t, cols, valid)
+        ms, _, timing = cs.time_cuda(call, iters=20,
+                                     fresh=lambda: (table.clone(),))
+        line.setdefault(f"{tag}_ms", []).append(ms)
+        line.setdefault(f"{tag}_timing", []).append(timing)
         if op == "insert" and (n <= cs.CHUNK or tag == "new_phased"):
             line[f"{tag}_rounds"] = v.rounds()
     if op == "insert":

@@ -12,7 +12,9 @@ q7 executor run's input with the most keyed rows, and the whole q7 run
 captures them), whole and split by keyed rows per input. Each version is
 checked exactly against the plain version on every input, then timed in
 the order old..., new, new, ...old with ``chip_smoke.time_cuda`` (device
-time from the profiler's CUDA trace, summed over a call's kernels). One
+time with L2 evicted before each call, from the profiler's CUDA trace,
+summed over a call's kernels, or CUDA events where the trace lost
+kernels; ``<tag>_timing`` says which). One
 JSON line per input goes to stdout and, with ``--out``, to that file.
 Needs a CUDA card.
 """
@@ -103,12 +105,13 @@ def compare(name, inputs, fns, plain_iters=10):
     iters = 10 if len(inputs) > 1 else 50
     for tag in order:
         per = {}
-        ms, _ = cs.time_cuda(
+        ms, _, timing = cs.time_cuda(
             lambda: [fns[tag](i, m) for i, m in inputs], iters=iters,
             by_kernel=per)
         line.setdefault(f"{tag}_ms", []).append(ms)
+        line.setdefault(f"{tag}_timing", []).append(timing)
         line[f"{tag}_kernels"] = {k[:48]: v for k, v in per.items()}
-    line["plain_ms"], _ = cs.time_cuda(
+    line["plain_ms"], _, line["plain_timing"] = cs.time_cuda(
         lambda: [rt.rank_totals_plain(i, m) for i, m in inputs],
         iters=plain_iters)
     line["bound_ms"] = sum(cs.rank_totals_bound(i, m)[0] for i, m in inputs)

@@ -9,7 +9,12 @@ non-integer float64 sum lane on the card against the CPU, TopN and
 GroupTopN (a VARCHAR order whose dictionary grows mid-run included), a
 DynamicFilter under a SimpleAgg(max) bound and MIN/MAX over VARCHAR on the
 card against the CPU, and the row set's and TopN's apply
-with synchronizing calls made errors. They skip where no card is present;
+with synchronizing calls made errors; HopWindow's batch, q5 over HOP
+windows, the EOWC running window (the Sort's row set rebuilt, and its
+recovery) on the card against the CPU, kernel B3's lowest-row winner among
+in-chunk duplicates on both of its paths, and the new executors' batched
+ingest with synchronizing calls made errors. They skip where no card is
+present;
 run them on the card
 with ``python -m pytest tests/test_torch_gpu.py -m gpu``.
 """
@@ -549,3 +554,165 @@ def test_min_max_varchar_on_card_equals_cpu(cuda):
     equals the CPU, row for row."""
     on_card = _varchar_minmax_run("cuda")
     assert on_card == _varchar_minmax_run("cpu") and on_card
+
+
+def _hop_batch(device):
+    """A ChunkBatch of device-generated bids through HopWindow(2 s, 10 s):
+    every output tensor on the host."""
+    from risingwave_tpu_torch.connector import (
+        BID_SCHEMA, DeviceBidGenerator, NexmarkConfig,
+    )
+    from risingwave_tpu_torch.stream import HopWindowExecutor, MockSource
+    gen = DeviceBidGenerator(NexmarkConfig(chunk_capacity=256), device=device)
+    hop = HopWindowExecutor(MockSource(BID_SCHEMA, []), 5, 2_000_000,
+                            10_000_000)
+
+    async def first():
+        async for out in hop.map_chunk_batch(gen.next_batch(4)):
+            return out
+
+    c = asyncio.run(first()).chunk
+    return [t.cpu() for t in [c.ops, c.vis] + [
+        x for col in c.columns for x in (col.data, col.mask)]]
+
+
+def test_hop_window_batch_on_card_equals_cpu(cuda):
+    on_card, on_cpu = _hop_batch("cuda"), _hop_batch("cpu")
+    assert on_card[0].shape == (20, 256)
+    assert all(torch.equal(a, b) for a, b in zip(on_card, on_cpu))
+
+
+def _nexmark_source(device, ticks, cfg, batch=False, first_epoch=1,
+                    checkpoint=False, skip=0):
+    """The host generator's bids (seed 42) after its first ``skip`` chunks:
+    a chunk (or a one-chunk batch), then a barrier, per tick."""
+    from risingwave_tpu_torch.common import stack_chunks
+    from risingwave_tpu_torch.connector import BID_SCHEMA, NexmarkGenerator
+    from risingwave_tpu_torch.stream import Barrier, MockSource
+    gen = NexmarkGenerator(cfg, seed=42, device=device)
+    chunks = [gen.next_bid_chunk() for _ in range(skip + ticks)][skip:]
+    msgs = [Barrier.new(first_epoch, checkpoint=checkpoint)]
+    for i, c in enumerate(chunks):
+        msgs += [stack_chunks([c]) if batch else c,
+                 Barrier.new(first_epoch + 1 + i, checkpoint=checkpoint)]
+    return MockSource(BID_SCHEMA, msgs)
+
+
+def _mv_rows(plan, store) -> list:
+    from risingwave_tpu_torch.stream import Barrier
+
+    async def run():
+        async for m in plan.mv.execute():
+            if isinstance(m, Barrier) and m.checkpoint:
+                store.commit(m.epoch.curr)
+
+    asyncio.run(run())
+    return sorted(plan.mv.rows())
+
+
+def test_q5_hop_small_on_card_equals_cpu(cuda):
+    """q5 over HOP windows (the HashAggs and the join on kernels B3 and
+    B1) on bids spread over ~8 slides, per chunk and batched."""
+    from risingwave_tpu_torch.connector import NexmarkConfig
+    from risingwave_tpu_torch.storage import MemoryStateStore, StateTable
+    from risingwave_tpu_torch.stream import nexmark_plans as plans
+    cfg = NexmarkConfig(chunk_capacity=64, events_per_second=50)
+    for batch in (False, True):
+        rows = []
+        for d in ("cuda", "cpu"):
+            store = MemoryStateStore()
+            plan = plans.q5_hop(
+                _nexmark_source(d, 12, cfg, batch),
+                _nexmark_source(d, 12, cfg, batch),
+                StateTable(store, 1, plans.q5_hop_schema(), [2, 0, 3]),
+                agg_capacity=1 << 10, key_capacity=1 << 8, bucket_width=64,
+                out_capacity=64, device=d)
+            rows.append(_mv_rows(plan, store))
+        assert rows[0] == rows[1] and rows[0]
+
+
+def test_eowc_running_with_sort_compaction_on_card_equals_cpu(cuda):
+    """WatermarkFilter, the Sort's row set (kernel B3, rebuilt once half
+    its 1<<9 slots hold keys) and EowcOverWindow on the card as on the
+    CPU, and recovered from state tables."""
+    from risingwave_tpu_torch.connector import NexmarkConfig
+    from risingwave_tpu_torch.storage import MemoryStateStore, StateTable
+    from risingwave_tpu_torch.stream import nexmark_plans as plans
+    cfg = NexmarkConfig(chunk_capacity=64, events_per_second=50)
+
+    def run(d, store, ticks, skip=0, tables=False):
+        src = _nexmark_source(d, ticks, cfg, first_epoch=1 + skip,
+                              checkpoint=tables, skip=skip)
+        plan = plans.eowc_running(
+            src, StateTable(store, 1, plans.eowc_running_schema(), [5]),
+            sort_capacity=1 << 9, out_capacity=64,
+            state_tables=(plans.eowc_running_state_tables(store)
+                          if tables else None),
+            row_id_start=skip * 64, device=d)
+        return _mv_rows(plan, store)
+
+    rows = []
+    for d in ("cuda", "cpu"):
+        whole = run(d, MemoryStateStore(), 8)
+        store = MemoryStateStore()
+        run(d, store, 4, tables=True)
+        assert run(d, store, 4, skip=4, tables=True) == whole
+        rows.append(whole)
+    assert rows[0] == rows[1] and rows[0]
+
+
+def test_dedup_first_row_wins_on_both_b3_paths(cuda):
+    """In-chunk duplicates: kernel B3's is_new falls on each new key's
+    lowest valid row on its phased and its grid path, and equals the plain
+    version slot for slot."""
+    import chip_smoke as cs
+    got = cs.check_first_wins("cuda")
+    assert set(got) == set(cs.B3_PATHS)
+
+
+def test_new_batched_ingest_makes_no_host_sync(cuda):
+    """WatermarkFilter, HopWindow, Project, HashAgg, Sort, AppendOnlyDedup
+    and Expand take a ChunkBatch with synchronizing CUDA calls made
+    errors."""
+    import chip_smoke as cs
+    from risingwave_tpu_torch.common import INT64, TIMESTAMP
+    from risingwave_tpu_torch.connector import (
+        BID_SCHEMA, DeviceBidGenerator, NexmarkConfig,
+    )
+    from risingwave_tpu_torch.expr import col, count_star
+    from risingwave_tpu_torch.stream import (
+        AppendOnlyDedupExecutor, ExpandExecutor, HashAggExecutor,
+        HopWindowExecutor, MockSource, ProjectExecutor, SortExecutor,
+        WatermarkFilterExecutor,
+    )
+    src = MockSource(BID_SCHEMA, [])
+    wf = WatermarkFilterExecutor(src, 5, 4_000_000, device="cuda")
+    hop = HopWindowExecutor(wf, 5, 2_000_000, 10_000_000)
+    proj = ProjectExecutor(hop, [col(7, TIMESTAMP), col(0, INT64)],
+                           ("window_start", "auction"))
+    agg = HashAggExecutor(proj, [0, 1], [count_star()],
+                          table_capacity=1 << 14, out_capacity=256,
+                          device="cuda")
+    sort = SortExecutor(src, 5, [0, 1], table_capacity=1 << 12,
+                        device="cuda")
+    dedup = AppendOnlyDedupExecutor(src, [0, 1], table_capacity=1 << 12,
+                                    device="cuda")
+    expand = ExpandExecutor(src, [[0], [1, 2]])
+    gen = DeviceBidGenerator(NexmarkConfig(chunk_capacity=256),
+                             device="cuda")
+    batch = gen.next_batch(4)
+
+    async def run():
+        async for a in wf.map_chunk_batch(batch):
+            async for b in hop.map_chunk_batch(a):
+                async for c in proj.map_chunk_batch(b):
+                    async for _ in agg.map_chunk_batch(c):
+                        pass
+        for ex in (sort, dedup, expand):
+            async for _ in ex.map_chunk_batch(batch):
+                pass
+
+    with cs.no_host_sync():
+        asyncio.run(run())
+    torch.cuda.synchronize()
+    assert int(agg.state.table.occupied.sum()) > 0
