@@ -9,7 +9,8 @@ Phases (any failure exits non-zero and prints no result line):
   2. each kernel against its plain PyTorch version on the card, exactly
      (integer counts, boolean masks, hash-table slots), and both timed
      with a cold L2 (``time_cuda``; a kernel that reads under its bound
-     fails the run), at the inputs listed in ``RANK_CASES``,
+     fails the run; L2 is evicted and left clean before every timed
+     call), at the inputs listed in ``RANK_CASES``,
      ``MATCH_CASES`` and ``HASH_CASES`` (kernel B3's find-or-insert on
      both of its paths, the float64 inputs also against the plain version
      on CPU copies; the card's float64 → float32 cast of six NaN patterns
@@ -114,19 +115,34 @@ Phases (any failure exits non-zero and prints no result line):
  20. Expand (two subsets), ProjectSet(generate_series(1, price % 4)),
      Union of two bid sources with watermarks (the minimum re-emitted),
      Values and Now, each equal to numpy's;
- 21. each kernel and its plain version timed on the inputs its path gave
-     it, as in phase 2 (B1 on q7's, q105's and q5_hop's busiest inputs and
-     summed over every input of the q7 run, with each input's count of
-     keyed rows; B2 on the fused q7 run's last flush; B3 on the q5
-     compaction's input and on the nine inputs kept in phases 13-19, each
-     also held against the plain version slot for slot on both of its
+ 21. TPC-H q3 and q10 as streaming MVs over tables (``stream/tpch_plans``):
+     customer, orders, lineitem and nation generated from a seed by the
+     TPC-H 3.0.1 rules (scale factor ``TPCH_SF``), loaded through DML into
+     their table jobs in chunks of 4096 rows; q3 and q10 created over
+     Backfill leaves and backfilled to their end, one after the other, at
+     the reference's batch of 4 chunks per barrier; then TPC-H's refresh
+     functions, one per epoch, every barrier a checkpoint (RF1 inserts SF
+     x 1,500 orders with their lineitems, RF2 deletes as many); both MVs
+     equal to a numpy evaluation of their SQL after the backfill, after
+     the RF1s and after the RF2s (revenue as a scaled int64); load and
+     backfill rows/s, each refresh's rows and staleness (DML push to the
+     barrier after it completing on both MVs), checkpoint ms, the device
+     busy share of one refresh epoch, B1 and B3 launches, peak device
+     memory; B1's busiest join input and B3's busiest join-key and agg
+     inputs kept;
+ 22. each kernel and its plain version timed on the inputs its path gave
+     it, as in phase 2 (B1 on q7's, q105's, q5_hop's and the TPC-H joins'
+     busiest inputs and summed over every input of the q7 run, with each
+     input's count of keyed rows; B2 on the fused q7 run's last flush; B3
+     on the q5 compaction's input and on the eleven inputs kept in phases
+     13-21, each also held against the plain version slot for slot on both of its
      paths); then profiled runs (q7 and q5 executors, two epochs of q105,
      q18, the EOWC running window and q5 over HOP windows, one fused q7,
      q5, q8 and q3 epoch): the device's busy share and top kernels; then
      one JSON line of every kernel: launches on its paths' runs (B1's and
      B3's on each path's run), exact agreement, its time and its plain
      version's, and its bound on an H100;
- 22. the last line: ``{"ok": true, "device": {...}}``.
+ 23. the last line: ``{"ok": true, "device": {...}}``.
 
 It imports nothing of JAX and nothing of the JAX package.
 """
@@ -230,6 +246,9 @@ HASH_CASES = [("q5", "insert"), ("load_0.7", "insert"), ("one_key", "insert"),
               ("all_absent_loaded", "insert"), ("nan_payloads", "insert"),
               ("find_hits_misses", "find"), ("find_full_table", "find")]
 B3_PATHS = ("phased", "grid")
+# calls over which B3's plain version is timed (20 before the TPC-H phase
+# needed the time)
+PLAIN_PROBE_ITERS = 5
 # B3's kernels, as the profiler names them
 B3_KERNELS = ("insert_phased_kernel", "find_window_kernel",
               "insert_grid_kernel")
@@ -241,7 +260,7 @@ NAN_PATTERNS = {0x7FF8000000000000: 0x7FC00000, 0xFFF8000000000000: 0xFFC00000,
 # H100 SXM published peaks (NVIDIA data sheet)
 HBM_BYTES_PER_S = 3.35e12
 INT8_TC_OPS_PER_S = 1979e12
-L2_FLUSH_BYTES = 128 << 20   # a copy this size evicts the 50 MB L2
+L2_FLUSH_BYTES = 128 << 20   # a copy or read this size evicts the 50 MB L2
 LEAD_CYCLES = 1_000_000      # ~0.5 ms of spin: the host's lead on the card
 CYCLES_PER_MS = 2_000_000    # the H100's SM clock is at most 1.98 GHz
 
@@ -778,10 +797,13 @@ def check_hash_probe(device, time_it: bool = True) -> dict:
 def probe_times(kernel, plain, table):
     """(kernel ms, plain ms, kernel call ms, timing) per find-or-insert
     call, as ``time_cuda`` reads them: each call on its own copy of
-    ``table``, made before the timed loops."""
+    ``table``, made before the timed loops. The plain version, which syncs
+    the host every round and takes 10-50 ms a call, is timed over
+    ``PLAIN_PROBE_ITERS`` calls."""
     ms, call_ms, k_timing = time_cuda(kernel, iters=20,
                                       fresh=lambda: (table.clone(),))
-    plain_ms, _, p_timing = time_cuda(plain, iters=20,
+    plain_ms, _, p_timing = time_cuda(plain, iters=PLAIN_PROBE_ITERS,
+                                      warmup=1,
                                       fresh=lambda: (table.clone(),))
     return ms, plain_ms, call_ms, timing_label(k_timing, p_timing)
 
@@ -795,20 +817,77 @@ def timing_label(kernel: str, plain: str) -> str:
     return f"kernel: {kernel}, plain: {plain}"
 
 
+def l2_flush_buffers():
+    """The two buffers of ``flush_l2``, made once per process."""
+    if not _FLUSH:
+        src = torch.empty(L2_FLUSH_BYTES, dtype=torch.uint8, device="cuda")
+        _FLUSH.extend((src, torch.empty_like(src),
+                       torch.zeros(L2_FLUSH_BYTES // 2, dtype=torch.int16,
+                                   device="cuda")))
+    return _FLUSH
+
+
+def flush_l2() -> None:
+    """Evict the 50 MB L2 and leave it clean: a device copy of
+    ``L2_FLUSH_BYTES`` evicts every line but leaves L2 full of dirty lines
+    of its destination, whose write-back would land inside the next
+    kernel's time; a read-only pass over another buffer of the same size
+    (int16 row maxima, 128 KiB written: rows short enough that the
+    reduction needs no cross-block semaphore, so no memset) then evicts
+    those, so their write-back falls here."""
+    src, dst, probe = l2_flush_buffers()
+    dst.copy_(src)
+    probe.view(1 << 16, -1).amax(dim=1)
+
+
+def flush_kernel_counts(iters: int, flush=flush_l2) -> dict:
+    """The kernels ``flush`` launches and how many of each per flush, by
+    name, from a profiled loop of flushes alone (learned once per process
+    and flush; no name is assumed)."""
+    if flush not in _FLUSH_KERNELS:
+        from torch.profiler import ProfilerActivity, profile
+        l2_flush_buffers()
+        flush()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                flush()
+            torch.cuda.synchronize()
+        names = {}
+        for e in prof.key_averages():
+            if getattr(e, "self_device_time_total", 0) > 0:
+                if e.count % iters:
+                    raise AssertionError(
+                        f"a trace of {iters} L2 flushes held {e.count} "
+                        f"launches of {e.key}")
+                names[e.key] = e.count // iters
+        if not names:
+            raise AssertionError("a trace of L2 flushes held no kernel")
+        print(f"l2 flush kernels ({flush.__name__}): " + json.dumps(names))
+        _FLUSH_KERNELS[flush] = names
+    return _FLUSH_KERNELS[flush]
+
+
+_FLUSH: list = []            # flush_l2's buffers
+_FLUSH_KERNELS: dict = {}    # flush -> {kernel name: launches per flush}
+
+
 def time_cuda(fn, iters: int = 50, warmup: int = 5, by_kernel=None,
-              fresh=None):
+              fresh=None, flush=flush_l2):
     """Milliseconds per call, ``(device, wall, timing)``. A call is
     ``fn(*fresh())``: ``fresh`` makes each call's own arguments (a copy of
     a table the call changes), all of a loop's before that loop starts, so
     no copy is timed; without it ``fn()``.
 
-    ``device`` is the card's own work per call with a cold L2: before every
-    call a device copy of ``L2_FLUSH_BYTES`` (a ``Memcpy``, left out)
-    evicts the 50 MB L2, as the path's caller finds it after a chunk's or
-    an epoch's other work; then the summed self time of every other kernel
-    the calls ran, from the profiler's CUDA trace (``timing`` "profiler").
-    Where the trace lost kernels (none recorded, or a kernel's count not a
-    whole multiple of the calls), CUDA events recorded just before and
+    ``device`` is the card's own work per call with a cold, clean L2:
+    ``flush_l2`` runs before every call, as the path's caller finds L2
+    after a chunk's or an epoch's other work; then the summed self time of
+    every kernel the calls ran, from the profiler's CUDA trace (``timing``
+    "profiler"), leaving out the flush's own kernels by name
+    (``flush_kernel_counts``). Where the trace lost kernels (none
+    recorded, a kernel's count not a whole multiple of the calls, or a
+    flush kernel's count other than the flushes', as when the call itself
+    launches a kernel of that name), CUDA events recorded just before and
     after each call give it instead (``timing`` "events", with the counts
     the trace held); a spin after each flush, of ``LEAD_CYCLES`` or twice
     ``wall`` if longer, gives the host its lead, so the events bracket the
@@ -816,11 +895,11 @@ def time_cuda(fn, iters: int = 50, warmup: int = 5, by_kernel=None,
     that syncs inside). ``wall`` is CUDA-event time around a loop of
     back-to-back calls without flushes, which a host-bound call inflates.
     A dict given as ``by_kernel`` receives each kernel's share of
-    ``device``, by name, from the profiler."""
+    ``device``, by name, from the profiler. ``flush`` replaces
+    ``flush_l2`` where a script compares evictions."""
     from torch.profiler import ProfilerActivity, profile
     make = fresh or tuple
-    src = torch.empty(L2_FLUSH_BYTES, dtype=torch.uint8, device="cuda")
-    dst = torch.empty_like(src)
+    flush_names = flush_kernel_counts(iters, flush)
     for _ in range(warmup):
         fn(*make())
     argv = [make() for _ in range(iters)]
@@ -838,16 +917,19 @@ def time_cuda(fn, iters: int = 50, warmup: int = 5, by_kernel=None,
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         for args in argv:
-            dst.copy_(src)
+            flush()
             fn(*args)
         torch.cuda.synchronize()
-    per, counts = {}, set()
+    per, counts, flushes_whole = {}, set(), True
     for e in prof.key_averages():
-        if getattr(e, "self_device_time_total", 0) > 0 \
-                and not e.key.startswith("Memcpy"):
-            per[e.key] = e.self_device_time_total / 1e3 / iters
-            counts.add(e.count)
-    if per and all(c % iters == 0 for c in counts):
+        if getattr(e, "self_device_time_total", 0) <= 0:
+            continue
+        if e.key in flush_names:
+            flushes_whole &= e.count == flush_names[e.key] * iters
+            continue
+        per[e.key] = e.self_device_time_total / 1e3 / iters
+        counts.add(e.count)
+    if per and flushes_whole and all(c % iters == 0 for c in counts):
         if by_kernel is not None:
             by_kernel.update(per)
         return sum(per.values()), wall, "profiler"
@@ -858,14 +940,15 @@ def time_cuda(fn, iters: int = 50, warmup: int = 5, by_kernel=None,
     lead = max(LEAD_CYCLES, int(2 * wall * CYCLES_PER_MS))
     torch.cuda.synchronize()
     for args, (a, b) in zip(argv, marks):
-        dst.copy_(src)
+        flush()
         torch.cuda._sleep(lead)
         a.record()
         fn(*args)
         b.record()
     torch.cuda.synchronize()
     return (sum(a.elapsed_time(b) for a, b in marks) / iters, wall,
-            f"events (trace counts {sorted(counts)} of {iters} calls)")
+            f"events (trace counts {sorted(counts)} of {iters} calls"
+            f"{'' if flushes_whole else ', flush kernels not whole'})")
 
 
 def held_to_bound(name: str, ms: float, bound_ms: float) -> None:
@@ -2858,6 +2941,352 @@ def run_small_ops(device, bids) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 21: TPC-H q3 and q10 as streaming MVs over tables, under TPC-H's
+# refresh functions
+# ---------------------------------------------------------------------------
+
+#: the scale factor: on an H100 SF 0.25 takes about 70 s, so SF 1 would
+#: take about 280 s, more than the phase's ~4 minutes; halved once
+#: (PERF.md section 4)
+TPCH_SF = 0.5
+TPCH_SEED = 7
+TPCH_LOAD_CHUNKS_PER_EPOCH = 64      # DML chunks of CHUNK rows per epoch
+TPCH_REFRESH_PAIRS = 2               # RF1 epochs, then as many RF2 epochs
+TPCH_NATIONS = ("ALGERIA", "ARGENTINA", "BRAZIL", "CANADA", "EGYPT",
+                "ETHIOPIA", "FRANCE", "GERMANY", "INDIA", "INDONESIA",
+                "IRAN", "IRAQ", "JAPAN", "JORDAN", "KENYA", "MOROCCO",
+                "MOZAMBIQUE", "PERU", "CHINA", "ROMANIA", "SAUDI ARABIA",
+                "VIETNAM", "RUSSIA", "UNITED KINGDOM", "UNITED STATES")
+TPCH_SEGMENTS = ("AUTOMOBILE", "BUILDING", "FURNITURE", "MACHINERY",
+                 "HOUSEHOLD")
+TPCH_START, TPCH_END = 8035, 10440   # 1992-01-01, 1998-08-02 (o_orderdate)
+TPCH_CURRENT = 9298                  # 1995-06-17: R/A or N by receipt date
+
+
+def tpch_text(rng, n: int, lo: int, hi: int, alphabet: bytes) -> list:
+    """n random strings of lengths in [lo, hi] over ``alphabet``."""
+    lens = rng.integers(lo, hi + 1, n)
+    chars = np.frombuffer(alphabet, np.uint8)[
+        rng.integers(0, len(alphabet), (n, hi))]
+    return [bytes(row[:k]).decode() for row, k in zip(chars, lens)]
+
+
+def tpch_orders(rng, keys: np.ndarray, n_cust: int) -> dict:
+    """Orders with these keys and their lineitems (TPC-H 3.0.1 4.2.3):
+    o_custkey uniform over the customers, never a multiple of 3;
+    o_orderdate uniform in [1992-01-01, 1998-08-02]; 1-7 lineitems, each
+    l_quantity 1-50 of part l_partkey at its retail price, l_discount
+    0.00-0.10, l_shipdate o_orderdate + 1-121 days, receipt l_shipdate +
+    1-30 days, l_returnflag R or A if received by 1995-06-17, else N.
+    DECIMAL columns are their scaled int64 (cents); VARCHAR ids."""
+    from risingwave_tpu_torch.common import GLOBAL_STRING_DICT as sd
+    n = len(keys)
+    cust = rng.integers(1, n_cust + 1, n)
+    cust = np.where(cust % 3 == 0, np.maximum(cust - 1, 1), cust)
+    date = rng.integers(TPCH_START, TPCH_END + 1, n).astype(np.int32)
+    per = rng.integers(1, 8, n)
+    o_idx = np.repeat(np.arange(n), per)
+    m = len(o_idx)
+    line = np.arange(m) - np.repeat(np.cumsum(per) - per, per) + 1
+    part = rng.integers(1, max(int(200_000 * n_cust / 150_000), 1) + 1, m)
+    retail = 90000 + (part // 10) % 20001 + 100 * (part % 1000)
+    price = rng.integers(1, 51, m) * retail
+    disc = rng.integers(0, 11, m)
+    ship = date[o_idx] + rng.integers(1, 122, m).astype(np.int32)
+    receipt = ship + rng.integers(1, 31, m)
+    ra = np.array([sd.intern("R"), sd.intern("A")], np.int32)
+    flag = np.where(receipt <= TPCH_CURRENT, ra[rng.integers(0, 2, m)],
+                    sd.intern("N")).astype(np.int32)
+    return {"orders": [keys, cust, date, np.zeros(n, np.int64)],
+            "lineitem": [keys[o_idx], line, price, disc, ship, flag]}
+
+
+def tpch_tables(sf: float, seed: int) -> dict:
+    """The four tables at scale factor ``sf`` as numpy columns in their
+    schemas' order (``stream/tpch_plans.TABLES``): customer SF x 150,000,
+    orders SF x 1,500,000 (keys sparse, 8 of every 32), lineitem 1-7 per
+    order, nation 25. c_address, c_phone and c_comment are random text of
+    the specified lengths (the comment not from the grammar)."""
+    from risingwave_tpu_torch.common import GLOBAL_STRING_DICT as sd
+    rng = np.random.default_rng(seed)
+    n_cust, n_ord = int(150_000 * sf), int(1_500_000 * sf)
+    ck = np.arange(1, n_cust + 1, dtype=np.int64)
+    nation = rng.integers(0, 25, n_cust)
+    alnum = b"abcdefghijklmnopqrstuvwxyzABCDEFGHIJKLMNOPQRSTUVWXYZ0123456789"
+    ids = lambda strs: np.fromiter(map(sd.intern, strs), np.int32,
+                                   len(strs))
+    phone = [f"{c + 10:02d}-{a:03d}-{b:03d}-{d:04d}" for c, a, b, d in zip(
+        nation, rng.integers(100, 1000, n_cust),
+        rng.integers(100, 1000, n_cust), rng.integers(1000, 10000, n_cust))]
+    seg = np.array([sd.intern(s) for s in TPCH_SEGMENTS], np.int32)
+    tables = {
+        "customer": [ck, ids([f"Customer#{k:09d}" for k in ck]),
+                     ids(tpch_text(rng, n_cust, 10, 40, alnum)),
+                     nation.astype(np.int64), ids(phone),
+                     rng.integers(-99999, 1_000_000, n_cust),
+                     seg[rng.integers(0, 5, n_cust)],
+                     ids(tpch_text(rng, n_cust, 29, 116,
+                                   b"abcdefghijklmnopqrstuvwxyz     "))],
+        "nation": [np.arange(25, dtype=np.int64),
+                   np.array([sd.intern(s) for s in TPCH_NATIONS], np.int32)],
+    }
+    j = np.arange(n_ord, dtype=np.int64)
+    tables.update(tpch_orders(rng, (j // 8) * 32 + j % 8 + 1, n_cust))
+    return tables
+
+
+def tpch_refresh(rng, k: int, sf: float, tables: dict,
+                 n: int = None) -> tuple:
+    """Refresh pair ``k``: RF1's ``n`` (SF x 1,500) new orders (keys from
+    slots 8-15 of every 32, unused by the load) with their lineitems, and
+    the orders RF2 deletes (the k-th ``n`` loaded orders in key order) with
+    theirs."""
+    n = n or int(1500 * sf)
+    j = np.arange(k * n, (k + 1) * n, dtype=np.int64)
+    new = tpch_orders(rng, (j // 8) * 32 + 8 + j % 8 + 1,
+                      int(150_000 * sf))
+    gone = tables["orders"][0][k * n:(k + 1) * n]
+    return new, gone
+
+
+def tpch_revenue(keys: np.ndarray, revenue: np.ndarray) -> dict:
+    """{key: summed revenue}, exactly in int64."""
+    uniq, inv = np.unique(keys, return_inverse=True)
+    sums = np.zeros(len(uniq), np.int64)
+    np.add.at(sums, inv.reshape(-1), revenue)
+    return dict(zip(uniq.tolist(), sums.tolist()))
+
+
+def tpch_q3(t: dict) -> dict:
+    """numpy q3 over the live tables: {(o_orderkey, o_orderdate,
+    o_shippriority): revenue at scale 4}."""
+    from risingwave_tpu_torch.common import GLOBAL_STRING_DICT as sd
+    from risingwave_tpu_torch.stream.tpch_plans import Q3_DATE
+    c, o, l = t["customer"], t["orders"], t["lineitem"]
+    om = (o[2] < Q3_DATE) & np.isin(o[1], c[0][c[6] == sd.intern("BUILDING")])
+    lm = (l[4] > Q3_DATE) & np.isin(l[0], o[0][om])
+    date = dict(zip(o[0][om].tolist(), o[2][om].tolist()))
+    prio = dict(zip(o[0][om].tolist(), o[3][om].tolist()))
+    return {(k, date[k], prio[k]): v for k, v in tpch_revenue(
+        l[0][lm], l[2][lm] * (100 - l[3][lm])).items()}
+
+
+def tpch_q10(t: dict) -> dict:
+    """numpy q10 over the live tables: {(c_custkey, c_name id, n_name id):
+    revenue at scale 4}."""
+    from risingwave_tpu_torch.common import GLOBAL_STRING_DICT as sd
+    from risingwave_tpu_torch.stream.tpch_plans import Q10_FROM, Q10_TO
+    c, o, l, nat = (t[k] for k in ("customer", "orders", "lineitem",
+                                   "nation"))
+    om = (o[2] >= Q10_FROM) & (o[2] < Q10_TO)
+    lm = (l[5] == sd.intern("R")) & np.isin(l[0], o[0][om])
+    cust = dict(zip(o[0][om].tolist(), o[1][om].tolist()))
+    name = dict(zip(c[0].tolist(), c[1].tolist()))
+    nkey = dict(zip(c[0].tolist(), c[3].tolist()))
+    nname = dict(zip(nat[0].tolist(), nat[1].tolist()))
+    lc = np.array([cust[k] for k in l[0][lm].tolist()], np.int64)
+    return {(k, name[k], nname[nkey[k]]): v for k, v in tpch_revenue(
+        lc, l[2][lm] * (100 - l[3][lm])).items()}
+
+
+def tpch_mv(cl, name: str) -> dict:
+    """An MV's rows as {group: revenue} in ``tpch_q3``'s or ``tpch_q10``'s
+    form, from its state table's physical rows."""
+    rows = cl.jobs[name].table.scan_all()
+    if name == "q3":
+        return {(r[0], r[2], r[3]): r[1] for r in rows}
+    return {(r[0], r[1], r[3]): r[2] for r in rows}
+
+
+def tpch_gate(cl, live: dict, when: str) -> dict:
+    """Both MVs against numpy over ``live``; their group counts."""
+    out = {}
+    for name, fn in (("q3", tpch_q3), ("q10", tpch_q10)):
+        got, want = tpch_mv(cl, name), fn(live)
+        if got != want:
+            bad = sorted(set(got.items()) ^ set(want.items()))[:3]
+            raise AssertionError(
+                f"TPC-H {name} after {when} differs from numpy: "
+                f"{len(got)} groups against {len(want)}; e.g. {bad}")
+        if not want:
+            raise AssertionError(f"TPC-H {name} after {when} is empty")
+        out[name] = len(want)
+    return out
+
+
+def tpch_chunks(schema, cols, op: int, device, capacity: int = None) -> list:
+    """DML chunks of ``capacity`` (CHUNK) rows from numpy columns of
+    physical values, every row with op ``op``."""
+    from risingwave_tpu_torch.common import Column, StreamChunk
+    cap = capacity or CHUNK
+    n = len(cols[0])
+    out = []
+    for lo in range(0, n, cap):
+        k = min(cap, n - lo)
+        vis = torch.zeros(cap, dtype=torch.bool)
+        vis[:k] = True
+        data = []
+        for f, c in zip(schema, cols):
+            d = torch.zeros(cap, dtype=f.type.dtype)
+            d[:k] = torch.from_numpy(np.ascontiguousarray(
+                c[lo:lo + k]).astype(f.type.np_dtype))
+            data.append(Column(d.to(device), vis.to(device)))
+        out.append(StreamChunk(torch.full((cap,), op, dtype=torch.int8,
+                                          device=device),
+                               vis.to(device), tuple(data)))
+    return out
+
+
+def tpch_sizes(sf: float):
+    """The q3 and q10 capacities at scale factor ``sf``, sized so that no
+    join and no agg grows (load at most ~0.5): keys of each join and its
+    bucket width (the largest group of rows of one key on either side)."""
+    from risingwave_tpu_torch.stream.tpch_plans import Sizes
+
+    def pow2(n):
+        return 1 << max(int(np.ceil(np.log2(max(n, 16)))), 4)
+
+    cust, orders = 150_000 * sf, 1_500_000 * sf
+    q3 = Sizes(joins=((pow2(2 * cust), 64), (pow2(orders), 8)),
+               agg_capacity=pow2(2 * 0.05 * orders), out_capacity=CHUNK)
+    # q10's last join: 25 nation keys, each with ~0.08 x orders / 25 rows
+    # on the left
+    q10 = Sizes(joins=((pow2(2 * cust), 16), (pow2(orders), 8),
+                       (64, pow2(1.5 * 0.08 * orders / 25))),
+                agg_capacity=pow2(2 * 0.5 * cust), out_capacity=CHUNK)
+    return q3, q10
+
+
+def run_tpch(device, sf: float = None, seed: int = TPCH_SEED,
+             refresh_pairs: int = TPCH_REFRESH_PAIRS) -> dict:
+    """Load the four tables through DML, create and backfill q3 and q10,
+    run the refresh functions (RF1s, then RF2s; one per epoch, every
+    barrier a checkpoint); both MVs gated against numpy after the backfill,
+    the RF1s and the RF2s. Kernel B1's and B3's launches counted from the
+    load to the last refresh, their busiest inputs kept."""
+    from risingwave_tpu_torch.frontend.runtime import Cluster
+    from risingwave_tpu_torch.stream import tpch_plans as tp
+    rt_mod = importlib.import_module("risingwave_tpu_torch.ops.rank_totals")
+    sf = TPCH_SF if sf is None else sf
+    t0 = time.perf_counter()
+    live = tpch_tables(sf, seed)
+    gen_s = time.perf_counter() - t0
+    rng = np.random.default_rng(seed + 1)
+    refresh = [tpch_refresh(rng, k, sf, live) for k in range(refresh_pairs)]
+    q3_sizes, q10_sizes = tpch_sizes(sf)
+    cl = Cluster(device=device, chunk_capacity=CHUNK)
+    tp.create_tables(cl)
+    out = {"sf": sf, "seed": seed, "generate_s": gen_s,
+           "rows": {k: len(v[0]) for k, v in live.items()},
+           "batch_rows": cl.batch_rows}
+    torch.cuda.reset_peak_memory_stats()
+    with busiest_rank_input() as b1_input, captured_probe_inputs({
+            "TPC-H join keys": "risingwave_tpu_torch.ops.join_state",
+            "TPC-H HashAgg groups": "risingwave_tpu_torch.ops.grouped_agg",
+    }) as b3_inputs:
+        b3_launches(reset=True)
+        rt_mod.rank_totals.launches = 0
+        # load: DML chunks of CHUNK rows, TPCH_LOAD_CHUNKS_PER_EPOCH each
+        # epoch, every barrier a checkpoint
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for name, cols in live.items():
+            schema = tp.TABLES[name][0]
+            chunks = tpch_chunks(schema, cols, 0, device)
+            for i, ch in enumerate(chunks):
+                cl.write(name, ch)
+                if (i + 1) % TPCH_LOAD_CHUNKS_PER_EPOCH == 0:
+                    cl.tick()
+            cl.tick()
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+        n_rows = sum(out["rows"].values())
+        out.update(load_s=load_s, load_rows_per_s=n_rows / load_s)
+        # backfill each MV to its end, one after the other
+        out["backfill"] = {}
+        for name, create in (("q3", tp.create_q3), ("q10", tp.create_q10)):
+            t0 = time.perf_counter()
+            create(cl, q3_sizes if name == "q3" else q10_sizes)
+            barriers = 0
+            while not cl.backfill_done(name):
+                cl.tick()
+                barriers += 1
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+            read = sum(bf.rows_done for bf in cl.backfills[name])
+            out["backfill"][name] = {"rows": read, "s": secs,
+                                     "rows_per_s": read / secs,
+                                     "barriers": barriers}
+        out["gate_backfill"] = tpch_gate(cl, live, "the backfill")
+        # the refresh functions, one per epoch: staleness is the time from
+        # the DML push to the barrier after it completing on both MVs. The
+        # refresh's chunks are built, and the gate's numpy mirror of the
+        # tables updated, before the clock starts.
+        out["refresh"] = []
+        for kind in ("RF1", "RF2"):
+            for k, (new, gone) in enumerate(refresh):
+                staged = []
+                if kind == "RF1":
+                    for name in ("orders", "lineitem"):
+                        staged.append((name, tpch_chunks(
+                            tp.TABLES[name][0], new[name], 0, device)))
+                        live[name] = [np.concatenate([a, b]) for a, b in
+                                      zip(live[name], new[name])]
+                    rows = sum(len(new[n][0]) for n in new)
+                else:
+                    rows = 0
+                    for name, key in (("orders", live["orders"][0]),
+                                      ("lineitem", live["lineitem"][0])):
+                        sel = np.isin(key, gone)
+                        staged.append((name, tpch_chunks(
+                            tp.TABLES[name][0],
+                            [c[sel] for c in live[name]], 1, device)))
+                        live[name] = [c[~sel] for c in live[name]]
+                        rows += int(sel.sum())
+                if kind == "RF1" and k == 0:
+                    prof_ctx = profiled()
+                else:
+                    prof_ctx = contextlib.nullcontext()
+                with prof_ctx as prof:
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    for name, chunks in staged:
+                        for ch in chunks:
+                            cl.write(name, ch)
+                    t1 = time.perf_counter()
+                    cl.tick()
+                    torch.cuda.synchronize()
+                    t2 = time.perf_counter()
+                epoch_s = t2 - t1
+                ms = (t2 - t0) * 1e3
+                out["refresh"].append({"kind": kind, "rows": rows,
+                                       "staleness_ms": ms,
+                                       "checkpoint_ms": cl.last_commit_s
+                                       * 1e3, "profiled": prof is not None})
+                if prof is not None:
+                    out["refresh_epoch_trace"] = trace_summary(
+                        prof, epoch_s, rows)
+            out[f"gate_{kind}"] = tpch_gate(cl, live, f"the {kind}s")
+        torch.cuda.synchronize()
+        out["b1_launches"] = rt_mod.rank_totals.launches
+        out["b3_launches"] = b3_launches()
+    out["peak_device_bytes"] = torch.cuda.max_memory_allocated()
+    out["b1_busiest_keyed_rows"] = b1_input.get("keyed_rows")
+    out["b1_input"] = b1_input
+    out["b3_inputs"] = dict(b3_inputs)
+    cl.close()
+    return out
+
+
+@contextlib.contextmanager
+def profiled():
+    """A CUDA profiler session around the block; yields the profiler."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        yield prof
+
+
 def nexmark_plan(name: str, device, auctions, bids):
     """A fresh q105 or q18 plan at the phase's sizes over these chunks."""
     from risingwave_tpu_torch.connector import AUCTION_SCHEMA, BID_SCHEMA
@@ -3153,20 +3582,32 @@ def main() -> int:
     lap("phase 19")
     print("small_ops: " + json.dumps(run_small_ops(
         device, nbids[:NEX_CHUNKS_PER_EPOCH])) + f" [{card}]")
-    if len(b3_inputs) != 9:
+    lap("phase 20")
+
+    # -- phase 21: TPC-H q3 and q10 over tables: DML load, backfill, the
+    # refresh functions, each MV gated against numpy three times
+    torch.cuda.empty_cache()
+    tpch = run_tpch(device)
+    tpch_b1 = tpch.pop("b1_input")
+    b3_inputs.update(tpch.pop("b3_inputs"))
+    b1_paths["tpch"] = tpch["b1_launches"]
+    b3_paths["tpch"] = tpch["b3_launches"]
+    print("tpch: " + json.dumps(tpch) + f" [{card}]")
+    if len(b3_inputs) != 11:
         raise AssertionError(f"kernel B3 inputs kept only at "
                              f"{sorted(b3_inputs)}")
     for path, n in list(b3_paths.items()) + list(b1_paths.items()):
         if n <= 0:
             raise AssertionError(f"the {path} run never launched its "
                                  "kernel")
-    lap("phase 20")
+    lap("phase 21")
 
-    # -- phase 21: kernel times on the inputs their path gave them: B1 on
+    # -- phase 22: kernel times on the inputs their path gave them: B1 on
     # the q7 run's input with the most keyed rows and the busiest inputs of
-    # q105 and q5_hop, B2 on the fused q7 run's last flush, B3 on the q5
-    # input of HASH_CASES, the q5 compaction's input and the busiest input
-    # of each row set and group table of phases 13-19. They come before
+    # q105, q5_hop and the TPC-H joins, B2 on the fused q7 run's last
+    # flush, B3 on the q5 input of HASH_CASES, the q5 compaction's input
+    # and the busiest input of each row set, group table and join key
+    # table of phases 13-21. They come before
     # the traces: after a trace of ~140,000 device ops later profiler
     # sessions came back short of kernels.
     ident, matches = max(captured, key=lambda im: int((im[0] >= 0).sum()))
@@ -3215,6 +3656,25 @@ def main() -> int:
     held_to_bound("rank_totals on q5_hop's input", q5h_b1_t["ms"],
                   q5h_b1_t["bound_ms"])
     print("rank_totals q5_hop input: " + json.dumps(q5h_b1_t))
+    # B1 on the TPC-H joins' busiest input
+    tpch_input = tpch_b1["input"]
+    for kern, plain in zip(rt_mod.rank_totals(*tpch_input),
+                           rt_mod.rank_totals_plain(*tpch_input)):
+        max_err = max(max_err, int((kern - plain).abs().max()))
+    if max_err:
+        raise AssertionError("rank_totals differs from plain on the TPC-H "
+                             "joins' input")
+    tpch_b1_t = dict(zip(("ms", "plain_ms", "call_ms", "plain_call_ms",
+                          "timing"),
+                         kernel_times(rt_mod.rank_totals,
+                                      rt_mod.rank_totals_plain, tpch_input)))
+    tpch_b1_t.update(shape=list(tpch_input[1].shape),
+                     keyed_rows=tpch_b1["keyed_rows"],
+                     calls=tpch_b1["calls"],
+                     bound_ms=rank_totals_bound(*tpch_input)[0])
+    held_to_bound("rank_totals on the TPC-H input", tpch_b1_t["ms"],
+                  tpch_b1_t["bound_ms"])
+    print("rank_totals tpch input: " + json.dumps(tpch_b1_t))
     # B1 over every input of the q7 run, one call each: its device time on
     # the path, and the bound summed the same way
     path_ms, _, path_timing = time_cuda(
@@ -3248,9 +3708,9 @@ def main() -> int:
     epochs = {"fused q5": FUSED_TIMED_EPOCHS + 1,
               "fused q8": Q8_Q3_TIMED_EPOCHS + 1,
               "fused q3": Q8_Q3_TIMED_EPOCHS + 1}
-    lap("phase 21 kernel times")
+    lap("phase 22 kernel times")
 
-    # -- phase 21, continued: where the time goes (device busy share)
+    # -- phase 22, continued: where the time goes (device busy share)
     head = chunks[:2 * CHUNKS_PER_EPOCH]
     print("q7_trace: " + json.dumps(trace(q7_pipeline, head, device)))
     print("q5_trace: " + json.dumps(trace(q5_pipeline, head, device)))
@@ -3278,7 +3738,7 @@ def main() -> int:
         print(f"{path}_fused_trace: " + json.dumps(summary))
     fq3b.check()
 
-    lap("phase 21 traces")
+    lap("phase 22 traces")
     print("phase_seconds: " + json.dumps(phase_s))
     print(card)
     print(json.dumps({"kernels": [{
@@ -3287,9 +3747,10 @@ def main() -> int:
         "replaces": "risingwave_tpu/ops/pallas_rank.py:85",
         "tpu_counterpart": "risingwave_tpu/ops/pallas_rank.py::_kernel",
         "path": "q7 executor; q7 executor (bench form); q7 recovery; "
-                "q105; q102; q5_hop",
+                "q105; q102; q5_hop; tpch",
         "launches": q7_launches, "path_launches": b1_paths,
         "q105_input": q105_b1, "q5_hop_input": q5h_b1_t,
+        "tpch_input": tpch_b1_t,
         "equal": max_err == 0, "max_abs_err": max_err, "shape": [n, w],
         "ms": ms, "kernel_ms": ms, "plain_ms": plain_ms,
         "call_ms": call_ms, "plain_call_ms": plain_call_ms,
@@ -3320,7 +3781,7 @@ def main() -> int:
         "path": "q7 and q5 executors, fused q5, q8 and q3, q5 and q7 "
                 "executors in bench form, q5 recovery, q5 compact, q7 "
                 "recovery, q105, q102, q18, q18 recovery, q5_hop, "
-                "eowc_running, eowc recovery, dedup, dedup recovery",
+                "eowc_running, eowc recovery, dedup, dedup recovery, tpch",
         "launches": sum(b3_paths.values()), "path_launches": b3_paths,
         "launches_per_epoch": {p: b3_paths[p] / e
                                for p, e in epochs.items()},

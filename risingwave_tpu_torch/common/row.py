@@ -1,7 +1,9 @@
 """Row representation and memcomparable key encoding (host tier).
 
 Counterpart of ``risingwave_tpu/common/row.py``, byte for byte over this
-package's six kinds: encoded keys compare bytewise in the order of the
+package's scalar kinds (INT16 keys as 16 bits, INT32 and DATE as 32,
+every other integral kind, DECIMAL's scaled int64 included, as 64; FLOAT32
+and FLOAT64 as float64): encoded keys compare bytewise in the order of the
 logical values, which gives the state store sorted iteration and prefix
 scans. Only physical scalars appear here. VARCHAR arrives as a dictionary
 id and is written as its string bytes, so order is lexicographic and a
@@ -65,7 +67,9 @@ def encode_value(v: Optional[Any], t: DataType) -> bytes:
         return _VAL_TAG + _enc_str(GLOBAL_STRING_DICT.lookup(int(v)))
     if t.is_float:
         return _VAL_TAG + _enc_float(float(v))
-    if k == TypeKind.INT32:
+    if k == TypeKind.INT16:
+        return _VAL_TAG + _enc_int(int(v), 16)
+    if k in (TypeKind.INT32, TypeKind.DATE):
         return _VAL_TAG + _enc_int(int(v), 32)
     return _VAL_TAG + _enc_int(int(v), 64)
 

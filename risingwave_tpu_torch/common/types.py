@@ -1,12 +1,14 @@
 """Logical type system for the data plane.
 
 Counterpart of ``risingwave_tpu/common/types.py``: every logical type lowers
-to a fixed-width tensor dtype. This package carries the scalar types of the
-NEXmark paths. VARCHAR is dictionary-encoded at the ingest boundary: the
-device sees int32 ids into the host's process-wide ``GLOBAL_STRING_DICT``,
-which ``to_physical`` interns into and ``to_python`` looks up. Ids are
-insertion-ordered, so every ordering on VARCHAR goes through the
-dictionary's rank table (``StringDict.ranks`` / ``device_ranks``).
+to a fixed-width tensor dtype. This package carries the scalar types
+(DECIMAL a scaled int64, DATE int32 days; LIST, STRUCT, JSONB and BYTEA
+are not ported yet). VARCHAR is dictionary-encoded at the ingest
+boundary: the device sees int32 ids into the host's process-wide
+``GLOBAL_STRING_DICT``, which ``to_physical`` interns into and
+``to_python`` looks up. Ids are insertion-ordered, so every ordering on
+VARCHAR goes through the dictionary's rank table (``StringDict.ranks`` /
+``device_ranks``).
 """
 
 from __future__ import annotations
@@ -23,29 +25,43 @@ import torch
 
 class TypeKind(enum.Enum):
     BOOL = "boolean"
+    INT16 = "smallint"
     INT32 = "int"
     INT64 = "bigint"
+    FLOAT32 = "real"
     FLOAT64 = "double"
+    DECIMAL = "decimal"        # scaled int64 (fixed point)
+    DATE = "date"              # int32 days since epoch
+    TIME = "time"              # int64 microseconds since midnight
     TIMESTAMP = "timestamp"    # int64 microseconds since epoch
+    INTERVAL = "interval"      # int64 microseconds (no month component)
     VARCHAR = "varchar"        # int32 dictionary id
     SERIAL = "serial"          # int64 row id (shard-prefixed)
 
 
 _PHYSICAL: dict[TypeKind, torch.dtype] = {
     TypeKind.BOOL: torch.bool,
+    TypeKind.INT16: torch.int16,
     TypeKind.INT32: torch.int32,
     TypeKind.INT64: torch.int64,
+    TypeKind.FLOAT32: torch.float32,
     TypeKind.FLOAT64: torch.float64,
+    TypeKind.DECIMAL: torch.int64,
+    TypeKind.DATE: torch.int32,
+    TypeKind.TIME: torch.int64,
     TypeKind.TIMESTAMP: torch.int64,
+    TypeKind.INTERVAL: torch.int64,
     TypeKind.VARCHAR: torch.int32,
     TypeKind.SERIAL: torch.int64,
 }
 
-_NP_OF_TORCH = {torch.bool: np.bool_, torch.int32: np.int32,
-                torch.int64: np.int64, torch.float64: np.float64}
+_NP_OF_TORCH = {torch.bool: np.bool_, torch.int16: np.int16,
+                torch.int32: np.int32, torch.int64: np.int64,
+                torch.float32: np.float32, torch.float64: np.float64}
 
-_INTEGRAL = {TypeKind.INT32, TypeKind.INT64, TypeKind.TIMESTAMP,
-             TypeKind.SERIAL}
+_INTEGRAL = {TypeKind.INT16, TypeKind.INT32, TypeKind.INT64,
+             TypeKind.SERIAL, TypeKind.DATE, TypeKind.TIME,
+             TypeKind.TIMESTAMP, TypeKind.INTERVAL, TypeKind.DECIMAL}
 
 
 class StringDict:
@@ -131,8 +147,12 @@ class StringDict:
     def device_ranks(self, device) -> torch.Tensor:
         """The rank table on ``device``, padded to a power of two (at least
         8); padding ranks as ``version``, above every live string. Cached
-        per device and version."""
+        per device and version; "cuda" and the current "cuda:N" share one
+        entry, so the executors (given "cuda") and the expressions (given a
+        tensor's "cuda:0") never build two."""
         dev = torch.device(device)
+        if dev.type == "cuda" and dev.index is None:
+            dev = torch.device("cuda", torch.cuda.current_device())
         n = len(self._to_str)
         hit = self._device_ranks.get(dev)
         if hit is None or hit[0] != n:
@@ -199,9 +219,11 @@ GLOBAL_LIST_DICT = ListDict()
 
 @dataclasses.dataclass(frozen=True)
 class DataType:
-    """A logical column type."""
+    """A logical column type. ``scale`` is meaningful for DECIMAL only: the
+    value is the int64 ``round(v * 10**scale)``."""
 
     kind: TypeKind
+    scale: int = 0
 
     @property
     def dtype(self) -> torch.dtype:
@@ -217,7 +239,7 @@ class DataType:
 
     @property
     def is_float(self) -> bool:
-        return self.kind == TypeKind.FLOAT64
+        return self.kind in (TypeKind.FLOAT32, TypeKind.FLOAT64)
 
     @property
     def is_string(self) -> bool:
@@ -227,6 +249,9 @@ class DataType:
         """Python value → physical scalar for device buffers."""
         if v is None:
             return self.null_sentinel()
+        if self.kind == TypeKind.DECIMAL:
+            # as the reference writes it: through a float64 product
+            return int(round(float(v) * 10**self.scale))
         if self.is_string:
             return GLOBAL_STRING_DICT.intern(
                 v if isinstance(v, str) else v.decode())
@@ -238,6 +263,8 @@ class DataType:
 
     def to_python(self, v: Any) -> Any:
         """Physical scalar → Python value (result rows / tests)."""
+        if self.kind == TypeKind.DECIMAL:
+            return int(v) / 10**self.scale if self.scale else int(v)
         if self.is_string:
             return GLOBAL_STRING_DICT.lookup(int(v))
         if self.kind == TypeKind.BOOL:
@@ -257,12 +284,21 @@ class DataType:
 
 
 BOOL = DataType(TypeKind.BOOL)
+INT16 = DataType(TypeKind.INT16)
 INT32 = DataType(TypeKind.INT32)
 INT64 = DataType(TypeKind.INT64)
+FLOAT32 = DataType(TypeKind.FLOAT32)
 FLOAT64 = DataType(TypeKind.FLOAT64)
+DATE = DataType(TypeKind.DATE)
+TIME = DataType(TypeKind.TIME)
 TIMESTAMP = DataType(TypeKind.TIMESTAMP)
+INTERVAL = DataType(TypeKind.INTERVAL)
 VARCHAR = DataType(TypeKind.VARCHAR)
 SERIAL = DataType(TypeKind.SERIAL)
+
+
+def decimal(scale: int = 2) -> DataType:
+    return DataType(TypeKind.DECIMAL, scale=scale)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -303,6 +339,9 @@ class Schema:
     @property
     def names(self) -> tuple[str, ...]:
         return tuple(f.name for f in self.fields)
+
+    def select(self, indices) -> "Schema":
+        return Schema(tuple(self.fields[i] for i in indices))
 
     def concat(self, other: "Schema") -> "Schema":
         return Schema(self.fields + other.fields)

@@ -8,7 +8,10 @@ stores the dictionary id and reduces in ``rank << 32 | id`` space, with the
 ranks fetched fresh at each update. Calls that cannot be fixed lanes (exact
 DISTINCT, the collecting kinds) run on the host tier
 (``stream/materialized_agg.py``). approx_count_distinct (the HLL lanes) and
-array_agg (no LIST type in this package) are not ported yet.
+array_agg (no LIST type in this package) are not ported yet. DECIMAL is an
+integral kind: its sum, min and max lanes are int64 at the argument's
+scale (exact, so the card's order of atomics cannot change them); avg
+scales it down to float64.
 """
 
 from __future__ import annotations
@@ -18,7 +21,9 @@ from typing import Optional
 
 import torch
 
-from ..common.types import FLOAT64, INT64, VARCHAR, DataType, rank_of
+from ..common.types import (
+    FLOAT64, INT64, VARCHAR, DataType, TypeKind, rank_of,
+)
 
 _I64_MAX = torch.iinfo(torch.int64).max
 _LANE_KINDS = ("count", "sum", "min", "max", "avg")
@@ -134,6 +139,9 @@ class AggCall:
             return [(v * s).to(self.state_dtypes()[0])]
         if self.kind == "avg":
             v = torch.where(vmask, value, torch.zeros_like(value)).double()
+            if self.arg_type is not None \
+                    and self.arg_type.kind == TypeKind.DECIMAL:
+                v = v / 10 ** self.arg_type.scale
             return [v * s, torch.where(vmask, s, torch.zeros_like(s)).long()]
         dt = self.state_dtypes()[0]
         sent = torch.full_like(value, self._minmax_sentinel(), dtype=dt)

@@ -1,19 +1,28 @@
-"""Vectorized expression engine — the subset the q5/q7 path needs.
+"""Vectorized expression engine.
 
 Counterpart of ``risingwave_tpu/expr/expr.py``: an expression is a small
 static tree whose ``eval(chunk) -> Column`` is plain tensor code over the
 column tensors. Null semantics are SQL three-valued logic: masks propagate
-through strict functions; AND/OR use Kleene logic. VARCHAR values are
-dictionary ids: equality compares ids, the ordering comparisons compare the
-ids' lexicographic ranks, and casts to or from VARCHAR format or parse each
-distinct value on the host. The string, regex, JSONB, extract and decimal
-function families are not ported yet.
+through strict functions; AND/OR use Kleene logic; CASE, COALESCE and IS
+NULL handle masks explicitly. DECIMAL is a scaled int64: ``call`` aligns
+the scales of +, -, %, comparisons, CASE and COALESCE, and a product's
+scale is the sum of its operands'. VARCHAR values are dictionary ids:
+equality compares ids, the ordering comparisons compare the ids' ranks,
+casts to or from VARCHAR format or parse each distinct value on the host,
+and the string functions (lower, upper, substr, length, ||, LIKE) run on
+the host: those that give a BOOL or an integer once per dictionary id,
+gathered on the card, and those that give a VARCHAR once per distinct
+value of the chunk.
+The regex, JSONB, array, struct and ``to_char`` functions are not ported
+yet.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import datetime
+import functools
+import re
 from typing import Any, Callable, Sequence
 
 import numpy as np
@@ -82,29 +91,75 @@ class FunctionCall(Expr):
     type: DataType
 
     def eval(self, chunk: StreamChunk) -> Column:
-        impl, _ = _REGISTRY[self.name]
         cols = [a.eval(chunk) for a in self.args]
+        if self.name in _STR_FNS:
+            return _eval_str_fn(self, cols)
+        impl, _ = _REGISTRY[self.name]
         data, mask = impl([c.data for c in cols], [c.mask for c in cols],
                           self.type)
         return Column(data, mask)
+
+
+_DECIMAL_ALIGN_FNS = {
+    "add", "subtract", "modulus", "equal", "not_equal", "less_than",
+    "less_than_or_equal", "greater_than", "greater_than_or_equal",
+}
+
+
+def _decimal_fixup(name: str, args: tuple) -> tuple:
+    """Fixed-point scales: aligned scales make +, -, % and comparisons
+    plain int64 ops (integers are cast up to the widest scale);
+    ``multiply`` adds scales (``_t_mul``); ``divide`` and any float operand
+    lower DECIMAL to float64."""
+    if not any(a.type.kind == TypeKind.DECIMAL for a in args):
+        return args
+    if name == "divide" or any(a.type.is_float for a in args):
+        return tuple(cast(a, T.FLOAT64) if a.type.kind == TypeKind.DECIMAL
+                     else a for a in args)
+    s = max(a.type.scale for a in args)
+
+    def align(a):
+        return cast(a, T.decimal(s)) if (a.type.kind == TypeKind.DECIMAL
+                                         or a.type.is_integral) else a
+
+    if name in _DECIMAL_ALIGN_FNS or name == "coalesce":
+        return tuple(align(a) for a in args)
+    if name == "case":
+        # value positions only: odd indices and the trailing ELSE
+        has_else = len(args) % 2 == 1
+        out = list(args)
+        for i in range(1, len(args) - (1 if has_else else 0), 2):
+            out[i] = align(args[i])
+        if has_else:
+            out[-1] = align(args[-1])
+        return tuple(out)
+    return args
 
 
 _STR_ORDER_FNS = {
     "less_than", "less_than_or_equal", "greater_than",
     "greater_than_or_equal",
 }
+#: functions that take VARCHAR operands
+_STR_OK_FNS = {"equal", "not_equal", "is_null", "is_not_null", "str_rank",
+               "coalesce", "case"}
 
 
 def call(name: str, *args: Expr) -> FunctionCall:
     if name not in _REGISTRY:
         raise KeyError(f"unknown function {name!r}")
-    if name in _STR_ORDER_FNS and all(a.type.is_string for a in args):
+    args = _decimal_fixup(name, tuple(args))
+    if name in _STR_FNS:
+        for pos in _STR_FNS[name][0]:
+            if not args[pos].type.is_string:
+                raise TypeError(f"{name} expects varchar, got "
+                                f"{args[pos].type.kind.value}")
+    elif name in _STR_ORDER_FNS and all(a.type.is_string for a in args):
         # ids are insertion-ordered: order by the dictionary's ranks
         name = "str_" + name
-    elif any(a.type.is_string for a in args) and name not in (
-            "equal", "not_equal", "is_null", "is_not_null", "str_rank"):
+    elif any(a.type.is_string for a in args) and name not in _STR_OK_FNS:
         raise NotImplementedError(
-            f"{name} over VARCHAR: string functions are not ported yet")
+            f"{name} over VARCHAR is not ported yet")
     _, infer = _REGISTRY[name]
     return FunctionCall(name, tuple(args), infer([a.type for a in args]))
 
@@ -115,17 +170,25 @@ def col(index: int, type: DataType) -> InputRef:
 
 # -- type inference helpers --------------------------------------------------
 
-_NUM_ORDER = [TypeKind.INT32, TypeKind.INT64, TypeKind.FLOAT64]
+_NUM_ORDER = [
+    TypeKind.INT16, TypeKind.INT32, TypeKind.INT64, TypeKind.DECIMAL,
+    TypeKind.FLOAT32, TypeKind.FLOAT64,
+]
 
 
 def _promote(ts: Sequence[DataType]) -> DataType:
-    """Widest numeric type; a non-numeric operand (timestamp arithmetic)
-    wins regardless of position."""
+    """Widest numeric type (of two DECIMALs the larger scale); a
+    non-numeric operand (date, time or timestamp arithmetic) wins
+    regardless of position."""
     for t in ts:
         if t.kind not in _NUM_ORDER:
             return t
     best = ts[0]
     for t in ts[1:]:
+        if t.kind == best.kind:
+            if t.kind == TypeKind.DECIMAL and t.scale > best.scale:
+                best = t
+            continue
         if _NUM_ORDER.index(t.kind) > _NUM_ORDER.index(best.kind):
             best = t
     return best
@@ -169,10 +232,19 @@ def _cmp(fn):
     return impl
 
 
+def _t_mul(ts):
+    """A fixed-point product's scale is the sum of its operands' (float
+    operands were lowered by ``_decimal_fixup``)."""
+    decs = [t for t in ts if t.kind == TypeKind.DECIMAL]
+    if decs:
+        return T.decimal(sum(t.scale for t in decs))
+    return _promote(ts)
+
+
 # arithmetic
 register("add", _t_same)(_binary(torch.add))
 register("subtract", _t_same)(_binary(torch.sub))
-register("multiply", _t_same)(_binary(torch.mul))
+register("multiply", _t_mul)(_binary(torch.mul))
 register("neg", _t_first)(_unary(torch.neg))
 register("abs", _t_first)(_unary(torch.abs))
 
@@ -282,6 +354,25 @@ def _coalesce(datas, masks, out_type):
     return data, mask
 
 
+# conditional: case(cond1, val1, cond2, val2, ..., else_val)
+@register("case", lambda ts: ts[1])
+def _case(datas, masks, out_type):
+    n = len(datas)
+    if n % 2 == 1:
+        data = datas[-1].to(out_type.dtype)
+        mask = masks[-1]
+        pairs = (n - 1) // 2
+    else:
+        data = torch.zeros_like(datas[1], dtype=out_type.dtype)
+        mask = torch.zeros_like(masks[0])
+        pairs = n // 2
+    for i in reversed(range(pairs)):
+        cond = datas[2 * i] & masks[2 * i]
+        data = torch.where(cond, datas[2 * i + 1].to(out_type.dtype), data)
+        mask = torch.where(cond, masks[2 * i + 1], mask)
+    return data, mask
+
+
 _EPOCH = datetime.datetime(1970, 1, 1)
 _BOOL_TEXT = {"t": True, "true": True, "y": True, "yes": True, "on": True,
               "1": True, "f": False, "false": False, "n": False, "no": False,
@@ -348,13 +439,47 @@ class Cast(Expr):
 
     def eval(self, chunk: StreamChunk) -> Column:
         c = self.arg.eval(chunk)
-        if self.arg.type.is_string or self.type.is_string:
-            return Column(_cast_text(c, self.arg.type, self.type), c.mask)
-        return Column(c.data.to(self.type.dtype), c.mask)
+        src, dst = self.arg.type, self.type
+        if src.is_string or dst.is_string:
+            return Column(_cast_text(c, src, dst), c.mask)
+        data = c.data
+        if src.kind == TypeKind.DECIMAL and dst.kind == TypeKind.DECIMAL:
+            if dst.scale >= src.scale:
+                data = data * 10 ** (dst.scale - src.scale)
+            else:
+                data = _round_div(data, 10 ** (src.scale - dst.scale))
+        elif src.kind == TypeKind.DECIMAL and dst.is_float:
+            data = data.to(dst.dtype) / 10 ** src.scale
+        elif src.kind == TypeKind.DECIMAL:
+            data = _round_div(data, 10 ** src.scale).to(dst.dtype)
+        elif dst.kind == TypeKind.DECIMAL:
+            data = torch.round(data.double() * 10 ** dst.scale).long()
+        elif src.kind == TypeKind.DATE and dst.kind == TypeKind.TIMESTAMP:
+            data = data.long() * USECS_PER_DAY
+        elif src.kind == TypeKind.TIMESTAMP and dst.kind == TypeKind.DATE:
+            data = torch.div(data.long(), USECS_PER_DAY,
+                             rounding_mode="floor").to(dst.dtype)
+        else:
+            data = data.to(dst.dtype)
+        return Column(data, c.mask)
+
+
+def _round_div(d: torch.Tensor, factor: int) -> torch.Tensor:
+    """Fixed-point narrowing: PostgreSQL rounds half away from zero."""
+    half = factor // 2
+    d = torch.where(d >= 0, d + half, d - half)
+    return torch.div(d, factor, rounding_mode="trunc")
 
 
 def cast(arg: Expr, to: DataType) -> Expr:
     return Cast(arg, to) if arg.type != to else arg
+
+
+# temporal: epoch-microsecond arithmetic
+USECS_PER_SEC = 1_000_000
+USECS_PER_MIN = 60 * USECS_PER_SEC
+USECS_PER_HOUR = 60 * USECS_PER_MIN
+USECS_PER_DAY = 24 * USECS_PER_HOUR
 
 
 @register("tumble_start", lambda ts: T.TIMESTAMP)
@@ -364,3 +489,237 @@ def _tumble_start(datas, masks, out_type):
     safe = torch.where(w == 0, torch.ones_like(w), w)
     start = torch.div(ts.long(), safe, rounding_mode="floor") * safe
     return start, _strict_mask(masks) & (w != 0)
+
+
+# ---------------------------------------------------------------------------
+# EXTRACT: civil-date arithmetic on day numbers (Howard Hinnant's
+# algorithm), integer tensor ops with floor division, so days before 1970
+# come out right
+# ---------------------------------------------------------------------------
+
+def _fdiv(a, b):
+    return torch.div(a, b, rounding_mode="floor")
+
+
+def _civil_from_days(days: torch.Tensor):
+    z = days.long() + 719468
+    era = _fdiv(z, 146097)
+    doe = z - era * 146097
+    yoe = _fdiv(doe - _fdiv(doe, 1460) + _fdiv(doe, 36524)
+                - _fdiv(doe, 146096), 365)
+    y = yoe + era * 400
+    doy = doe - (365 * yoe + _fdiv(yoe, 4) - _fdiv(yoe, 100))
+    mp = _fdiv(5 * doy + 2, 153)
+    d = doy - _fdiv(153 * mp + 2, 5) + 1
+    m = torch.where(mp < 10, mp + 3, mp - 9)
+    y = y + (m <= 2).long()
+    return y, m, d, doy
+
+
+def _days_from_civil(y, m, d):
+    y = y - (m <= 2).long()
+    era = _fdiv(y, 400)
+    yoe = y - era * 400
+    doy = _fdiv(153 * torch.where(m > 2, m - 3, m + 9) + 2, 5) + d - 1
+    doe = yoe * 365 + _fdiv(yoe, 4) - _fdiv(yoe, 100) + doy
+    return era * 146097 + doe - 719468
+
+
+def make_extract(field: str, arg: Expr) -> Expr:
+    """``extract(field FROM arg)``: the day number depends on the
+    argument's logical type (DATE or TIMESTAMP), which a function's impl
+    does not see, so each (field, type) registers a function of its own."""
+    field = field.lower()
+    t = arg.type
+    days_div = 1 if t.kind == TypeKind.DATE else USECS_PER_DAY
+
+    def days_of(data):
+        return _fdiv(data.long(), days_div)
+
+    def with_days(fn):
+        def impl(datas, masks, out_type):
+            return fn(days_of(datas[0])).long(), masks[0]
+        return impl
+
+    def time_part(unit_us, modulo):
+        def impl(datas, masks, out_type):
+            return _fdiv(datas[0].long() % modulo, unit_us), masks[0]
+        return impl
+
+    name = f"__extract_{field}_{t.kind.name.lower()}"
+    if name not in _REGISTRY:
+        if field == "year":
+            impl = with_days(lambda d: _civil_from_days(d)[0])
+        elif field == "month":
+            impl = with_days(lambda d: _civil_from_days(d)[1])
+        elif field == "day":
+            impl = with_days(lambda d: _civil_from_days(d)[2])
+        elif field == "quarter":
+            impl = with_days(lambda d: _fdiv(_civil_from_days(d)[1] + 2, 3))
+        elif field == "dow":        # Sunday = 0; 1970-01-01 was a Thursday
+            impl = with_days(lambda d: (d + 4) % 7)
+        elif field == "doy":
+            def impl(datas, masks, out_type):
+                days = days_of(datas[0])
+                y = _civil_from_days(days)[0]
+                one = torch.ones_like(y)
+                return days - _days_from_civil(y, one, one) + 1, masks[0]
+        elif field == "epoch":
+            per = USECS_PER_DAY // USECS_PER_SEC
+            if t.kind == TypeKind.DATE:
+                def impl(datas, masks, out_type):
+                    return datas[0].long() * per, masks[0]
+            else:
+                def impl(datas, masks, out_type):
+                    return _fdiv(datas[0].long(), USECS_PER_SEC), masks[0]
+        elif field == "hour":
+            impl = time_part(USECS_PER_HOUR, USECS_PER_DAY)
+        elif field == "minute":
+            impl = time_part(USECS_PER_MIN, USECS_PER_HOUR)
+        elif field == "second":
+            impl = time_part(USECS_PER_SEC, USECS_PER_MIN)
+        else:
+            raise KeyError(f"unsupported EXTRACT field {field!r}")
+        _REGISTRY[name] = (impl, _t_int64)
+    return call(name, arg)
+
+
+# ---------------------------------------------------------------------------
+# String functions over dictionary ids. The content lives in the host
+# dictionary, so each function runs on the host. One whose result is a
+# BOOL or an integer (length, LIKE), with literals for its other operands,
+# runs once per dictionary id (a table over every id so far, extended as
+# the dictionary grows), and the result for a chunk is a gather of that
+# table on the card: no row goes to the host, and no host sync. One whose
+# result is a VARCHAR runs once per distinct operand tuple of the chunk
+# (one copy to the host), as does any function with a second column
+# operand. A VARCHAR table over every id would intern its results and then
+# have to extend over them: ``s || '!'`` would add one string per id on
+# every chunk ('x!', 'x!!', ...) until the dictionary is full.
+# ---------------------------------------------------------------------------
+
+def _lookup_str(i: int) -> str:
+    try:
+        return GLOBAL_STRING_DICT.lookup(int(i))
+    except IndexError:
+        return ""
+
+
+def _substr(s, start, n=None):
+    """PostgreSQL's window is [start-1, start-1+n) in virtual positions: a
+    start below 1 uses up length before the string begins."""
+    if n is None:
+        return s[max(start - 1, 0):]
+    return s[max(start - 1, 0):max(start - 1 + n, 0)]
+
+
+def _like_regex(pattern: str) -> "re.Pattern":
+    """LIKE's pattern as an anchored regex: % any run, _ one character, a
+    backslash makes the next character literal."""
+    out = []
+    i = 0
+    while i < len(pattern):
+        ch = pattern[i]
+        if ch == "\\" and i + 1 < len(pattern):
+            out.append(re.escape(pattern[i + 1]))
+            i += 2
+            continue
+        out.append(".*" if ch == "%" else "." if ch == "_"
+                   else re.escape(ch))
+        i += 1
+    return re.compile("^" + "".join(out) + "$", re.DOTALL)
+
+
+@functools.lru_cache(maxsize=256)
+def _like_cached(pattern: str):
+    return _like_regex(pattern)
+
+
+def _like(s, pattern):
+    return _like_cached(pattern).match(s) is not None
+
+
+#: name -> (positions of VARCHAR operands, python function of the operands'
+#: python values, result type)
+_STR_FNS: dict[str, tuple] = {
+    "lower": ((0,), str.lower, T.VARCHAR),
+    "upper": ((0,), str.upper, T.VARCHAR),
+    "substr": ((0,), _substr, T.VARCHAR),
+    "length": ((0,), len, T.INT64),
+    "concat_op": ((0, 1), lambda a, b: a + b, T.VARCHAR),
+    "like": ((0, 1), _like, T.BOOL),
+    "not_like": ((0, 1), lambda s, p: not _like(s, p), T.BOOL),
+}
+for _name, (_, _, _out) in _STR_FNS.items():
+    # evaluated by ``_eval_str_fn``, not through an impl
+    _REGISTRY[_name] = (None, lambda ts, _t=_out: _t)
+
+
+class _IdTable:
+    """A string function's BOOL or integer result for every dictionary id
+    so far, given literal values for its other operands: a numpy table grown
+    by the ids interned since, and its copy on each device grown by the same
+    part. It interns nothing, so extending it never grows the dictionary."""
+
+    def __init__(self, fn, out_type: DataType):
+        assert not out_type.is_string
+        self.fn, self.out_type = fn, out_type
+        self.host = np.zeros(0, out_type.np_dtype)
+        self.device: dict = {}
+
+    def on(self, device, n: int) -> torch.Tensor:
+        m = self.host.shape[0]
+        if m < n:
+            vals = [self.fn(_lookup_str(i)) for i in range(m, n)]
+            self.host = np.concatenate(
+                [self.host, np.asarray(vals, self.out_type.np_dtype)])
+        dev = torch.device(device)
+        have = self.device.get(dev)
+        k = 0 if have is None else have.shape[0]
+        if k < n:
+            part = torch.from_numpy(self.host[k:n]).to(dev)
+            have = part if have is None else torch.cat([have, part])
+            self.device[dev] = have
+        return have
+
+
+_ID_TABLES: dict = {}
+
+
+def _eval_str_fn(e: "FunctionCall", cols) -> Column:
+    """A string function over a chunk (see the section's note)."""
+    str_pos, fn, out_type = _STR_FNS[e.name]
+    mask = _strict_mask([c.mask for c in cols])
+    if any(isinstance(a, Literal) and a.value is None for a in e.args):
+        return Column(torch.zeros_like(cols[0].data, dtype=out_type.dtype),
+                      mask)
+    cols_at = [i for i, a in enumerate(e.args) if not isinstance(a, Literal)]
+    if (len(cols_at) == 1 and cols_at[0] in str_pos
+            and not out_type.is_string):
+        # one column operand, a VARCHAR one: gather from its id table
+        at = cols_at[0]
+        lits = tuple(None if i == at else a.value
+                     for i, a in enumerate(e.args))
+        key = (e.name, at, lits)
+        table = _ID_TABLES.get(key)
+        if table is None:
+            def one(s, _lits=lits, _at=at):
+                return fn(*(s if i == _at else v
+                            for i, v in enumerate(_lits)))
+            table = _ID_TABLES[key] = _IdTable(one, out_type)
+        ids = cols[at].data
+        t = table.on(ids.device, len(GLOBAL_STRING_DICT))
+        return Column(t[ids.long().clamp(0, t.shape[0] - 1)], mask)
+    # a VARCHAR result, or a second column operand: once per distinct
+    # operand tuple
+    host = np.stack([c.data.cpu().numpy().astype(np.int64) for c in cols], 1)
+    uniq, inv = np.unique(host, axis=0, return_inverse=True)
+    vals = []
+    for tup in uniq:
+        args = [_lookup_str(v) if i in str_pos else int(v)
+                for i, v in enumerate(tup)]
+        r = fn(*args)
+        vals.append(GLOBAL_STRING_DICT.intern(r) if out_type.is_string
+                    else r)
+    out = np.asarray(vals, out_type.np_dtype)[inv.reshape(-1)]
+    return Column(torch.from_numpy(out).to(cols[0].data.device), mask)

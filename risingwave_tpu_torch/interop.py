@@ -5,7 +5,12 @@ Turns the reference's ``StreamChunk``, ``DeviceHashTable``, ``AggState``,
 ``RowSetState``, ``TopNState``, ``SimpleAggState``, the AppendOnlyDedup
 table and PRNG keys into this package's tensors on a given device, and the
 host-tier states of the OverWindow executors (per-partition caches and EOWC
-accumulators) into this package's classes. The reference
+accumulators) and a Backfill's progress into this package's classes.
+Chunks and states carry columns of every scalar kind as their physical
+values (DECIMAL its scaled int64, DATE its int32 days). Store snapshots
+need no converter: the row encodings are byte for byte the reference's,
+so ``MemoryStateStore.restore`` takes the reference's ``snapshot()``, a
+Backfill's progress table with it. The reference
 objects arrive as nested numpy arrays under the JAX field names: either the
 flax dataclasses with numpy leaves (``jax.tree_util.tree_map(np.asarray,
 state)``) or plain mappings. Nothing of JAX is imported here. The agg and
@@ -184,3 +189,16 @@ def prng_key_from_jax(key_data: Any, device=DEFAULT_DEVICE) -> torch.Tensor:
         raise ValueError(f"want uint32[..., 2] key data, got {words.dtype}"
                          f"{list(words.shape)}")
     return torch.tensor(words.astype(np.int64), device=device)
+
+
+def backfill_progress_from_jax(executor: Any) -> dict:
+    """A reference BackfillExecutor's progress, as the attributes of this
+    package's (``cursor``, ``cursor_row``, ``done``, ``rows_done``): its
+    encoded cursor and the cursor's physical pk values (a VARCHAR one the
+    reference's id)."""
+    row = executor.cursor_row
+    return {"cursor": executor.cursor,
+            "cursor_row": None if row is None else tuple(
+                v.item() if hasattr(v, "item") else v for v in row),
+            "done": bool(executor.done),
+            "rows_done": int(executor.rows_done)}

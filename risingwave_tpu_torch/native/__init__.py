@@ -29,10 +29,12 @@ BUILD_DIR = Path(__file__).resolve().parent.parent.parent / "build" / "native"
 CXX_FLAGS = ("-O3", "-shared", "-fPIC", "-std=c++17")
 
 #: TypeKind name -> native type code (rowcodec.cpp's header comment)
-_CODE_BY_KIND = {"BOOL": 0, "INT32": 2, "INT64": 3, "TIMESTAMP": 3,
-                 "SERIAL": 3, "FLOAT64": 5, "VARCHAR": 6}
+_CODE_BY_KIND = {"BOOL": 0, "INT16": 1, "INT32": 2, "DATE": 2, "INT64": 3,
+                 "TIME": 3, "TIMESTAMP": 3, "INTERVAL": 3, "SERIAL": 3,
+                 "DECIMAL": 3, "FLOAT32": 4, "FLOAT64": 5, "VARCHAR": 6}
 #: native type code -> the numpy dtype the C side reads
-_NP_BY_CODE = {0: np.uint8, 2: np.int32, 3: np.int64, 5: np.float64}
+_NP_BY_CODE = {0: np.uint8, 1: np.int16, 2: np.int32, 3: np.int64,
+               4: np.float32, 5: np.float64}
 
 _lib: Optional["RowCodec"] = None
 _tried = False

@@ -1,10 +1,13 @@
 """MaterializeExecutor — terminal sink writing MV rows to a StateTable.
 
 Counterpart of ``risingwave_tpu/stream/materialize.py``: the egress
-boundary, where device chunks become host rows (one copy per chunk).
-Conflicts overwrite on pk (the reference's default for MVs). A barrier
-seals the table's epoch; committing the store is the caller's, after every
-job has collected the barrier.
+boundary, where device chunks become host rows (one copy per chunk). It
+ends an MV's tree, and it is the whole of a table's job (DML queue →
+[RowIdGen] → Materialize, ``stream/tpch_plans.py``), whose state table is
+what a Backfill reads. Conflicts overwrite on pk: an insert replaces the
+row stored under its pk (the reference's default), and the chunk passes
+on unchanged. A barrier seals the table's epoch; committing the store is
+the caller's, after every job has collected the barrier.
 """
 
 from __future__ import annotations

@@ -1,9 +1,29 @@
-"""The executor trees of NEXmark q105, q102, q18, q5 over HOP windows, an
-EOWC running window, q13 and a dedup stream, built from this package's
-executors.
+"""The executor trees of the NEXmark SQL set (q1, q2, q3, q4, q7, q8 as
+tests/test_nexmark_queries.py writes them), q105, q102, q18, q5 over HOP
+windows, an EOWC running window, q13 and a dedup stream, built from this
+package's executors.
 
 Each tree is the one the reference's planner builds for the query (its
 ``EXPLAIN``), executor for executor:
+
+  * q1 — ``SELECT auction, bidder, price * 89 / 100 AS price, date_time
+    FROM bid``: bids → RowIdGen → Project → Materialize;
+  * q2 — ``WHERE auction % 123 = 0 OR auction % 125 = 0``: bids → RowIdGen
+    → Project(auction, price, _row_id) → Filter → Project → Materialize;
+  * q3 — auction ⋈ person on seller = id, ``category = 10`` and the
+    person's state in (OR, ID, CA): each side RowIdGen → Project → Filter,
+    then HashJoin → Project → Materialize;
+  * q4 — the average final price per category: auction ⋈ bid on id =
+    auction → Filter(bid time BETWEEN the auction's date_time and expires)
+    → Project → HashAgg(max(price) per auction and category) → Project →
+    HashAgg(avg per category; its input retracts) → Project →
+    Materialize;
+  * q7 — bids ⋈ (bids → Project(tumble end, price) → HashAgg(max)) on
+    price = max → Filter(date_time within the window) → Project →
+    Materialize, each branch on its own source of the same bids;
+  * q8 — persons and auctions grouped by (id, name, window) and (seller,
+    window) over 10 s TUMBLE windows (HashAggs without calls), joined on
+    the id and both window bounds → Project → Materialize;
 
   * q105 — ``SELECT a.id, a.item_name, COUNT(b.auction) AS bid_count FROM
     auction a JOIN bid b ON a.id = b.auction GROUP BY a.id, a.item_name
@@ -56,7 +76,9 @@ import torch
 
 from .. import DEFAULT_DEVICE
 from ..common.chunk import ChunkBatch, Column, StreamChunk
-from ..common.types import INT64, SERIAL, TIMESTAMP, VARCHAR, Field, Schema
+from ..common.types import (
+    INT32, INT64, SERIAL, TIMESTAMP, VARCHAR, Field, Schema,
+)
 from ..expr.agg import AggCall, agg, count_star
 from ..expr.expr import Literal, call, col
 from ..ops.join_state import JoinType
@@ -72,7 +94,7 @@ from .hop_window import HopWindowExecutor
 from .materialize import MaterializeExecutor
 from .materialized_agg import MaterializedAggExecutor
 from .over_window import EowcOverWindowExecutor, WindowCall, eowc_acc_schema
-from .project import ProjectExecutor
+from .project import FilterExecutor, ProjectExecutor
 from .row_id_gen import RowIdGenExecutor
 from .temporal_join import TemporalJoinExecutor
 from .top_n import TopNExecutor
@@ -85,6 +107,8 @@ HOP_SIZE = 10 * SECOND
 EOWC_DELAY = 4 * SECOND
 #: q13's side table: keys 0..SIDE_INPUT_KEYS-1, joined on auction % it
 SIDE_INPUT_KEYS = 10_000
+#: q7's and q8's TUMBLE(date_time, INTERVAL '10' SECOND)
+TUMBLE_SIZE = 10 * SECOND
 
 
 class RowIdAppend(SingleInputExecutor):
@@ -375,3 +399,207 @@ def q18_schema() -> Schema:
     from ..connector.nexmark import BID_SCHEMA
     return Schema(tuple(BID_SCHEMA[i] for i in (0, 1, 2, 5))
                   + (Field("_pk0", SERIAL),))
+
+
+# ---------------------------------------------------------------------------
+# the NEXmark SQL set (tests/test_nexmark_queries.py)
+# ---------------------------------------------------------------------------
+
+def _i64(index: int):
+    return col(index, INT64)
+
+
+def _lit(v, t=INT32) -> Literal:
+    return Literal(v, t)
+
+
+def _tumble(ts_col: int):
+    """(window_start, window_end) of TUMBLE(date_time, TUMBLE_SIZE)."""
+    start = call("tumble_start", col(ts_col, TIMESTAMP),
+                 _lit(TUMBLE_SIZE, INT64))
+    return start, call("add", start, _lit(TUMBLE_SIZE, INT64))
+
+
+def _mv(root: Executor, cols, names, mv_table: StateTable) -> Plan:
+    s = root.schema
+    return Plan(MaterializeExecutor(ProjectExecutor(
+        root, [col(i, s[i].type) for i in cols], names), mv_table))
+
+
+def q1(bid: Executor, mv_table: StateTable, *,
+       device=DEFAULT_DEVICE) -> Plan:
+    """``mv_table``: schema ``q1_schema()``, pk (4,)."""
+    rows = with_row_id(bid, 0, device)
+    price = call("divide", call("multiply", _i64(2), _lit(89)), _lit(100))
+    return Plan(MaterializeExecutor(ProjectExecutor(
+        rows, [_i64(0), _i64(1), price, col(5, TIMESTAMP),
+               col(7, SERIAL)],
+        ("auction", "bidder", "price", "date_time", "_pk0")), mv_table))
+
+
+def q2(bid: Executor, mv_table: StateTable, *,
+       device=DEFAULT_DEVICE) -> Plan:
+    """``mv_table``: schema ``q2_schema()``, pk (2,)."""
+    rows = _project(with_row_id(bid, 0, device), (0, 2, 7),
+                    ("auction", "price", "_row_id"))
+
+    def divisible(n):
+        return call("equal", call("modulus", _i64(0), _lit(n)), _lit(0))
+
+    kept = FilterExecutor(rows, call("or", divisible(123), divisible(125)))
+    return _mv(kept, (0, 1, 2), ("auction", "price", "_pk0"), mv_table)
+
+
+def q3(auction: Executor, person: Executor, mv_table: StateTable, *,
+       key_capacity: int = 1 << 13, bucket_width: int = 16,
+       out_capacity: int = 1024, device=DEFAULT_DEVICE) -> Plan:
+    """``mv_table``: schema ``q3_schema()``, pk (4, 5)."""
+    a = FilterExecutor(
+        _project(with_row_id(auction, 0, device), (0, 7, 8, 10),
+                 ("id", "seller", "category", "_row_id")),
+        call("equal", _i64(2), _lit(10)))
+    p = _project(with_row_id(person, 0, device), (0, 1, 4, 5, 8),
+                 ("id", "name", "city", "state", "_row_id"))
+
+    def state_is(v):
+        return call("equal", col(3, VARCHAR), Literal(v, VARCHAR))
+
+    p = FilterExecutor(p, call("or", call("or", state_is("OR"),
+                                          state_is("ID")), state_is("CA")))
+    join = HashJoinExecutor(a, p, [1], [0], JoinType.INNER,
+                            key_capacity=key_capacity,
+                            bucket_width=bucket_width,
+                            out_capacity=out_capacity, device=device)
+    plan = _mv(join, (5, 6, 7, 0, 3, 8),
+               ("name", "city", "state", "id", "_pk0", "_pk1"), mv_table)
+    plan.join = join
+    return plan
+
+
+def q4(auction: Executor, bid: Executor, mv_table: StateTable, *,
+       key_capacity: int = 1 << 13, bucket_width: int = 16,
+       agg_capacity: int = 1 << 16, out_capacity: int = 1024,
+       device=DEFAULT_DEVICE) -> Plan:
+    """``mv_table``: schema ``q4_schema()``, pk (0,)."""
+    a = _project(with_row_id(auction, 0, device), (0, 5, 6, 8, 10),
+                 ("id", "date_time", "expires", "category", "_row_id"))
+    b = _project(with_row_id(bid, 0, device), (0, 2, 5, 7),
+                 ("auction", "price", "date_time", "_row_id"))
+    join = HashJoinExecutor(a, b, [0], [0], JoinType.INNER,
+                            key_capacity=key_capacity,
+                            bucket_width=bucket_width,
+                            out_capacity=out_capacity, device=device)
+    ts = col(7, TIMESTAMP)
+    within = FilterExecutor(join, call(
+        "and", call("greater_than_or_equal", ts, col(1, TIMESTAMP)),
+        call("less_than_or_equal", ts, col(2, TIMESTAMP))))
+    final = HashAggExecutor(
+        _project(within, (0, 3, 6), ("id", "category", "price")), [0, 1],
+        [agg("max", 2, INT64)], table_capacity=agg_capacity,
+        out_capacity=out_capacity, device=device)
+    avg = HashAggExecutor(
+        _project(final, (1, 2), ("category", "final")), [0],
+        [agg("avg", 1, INT64)], table_capacity=agg_capacity,
+        out_capacity=out_capacity, device=device)
+    plan = _mv(avg, (0, 1), ("category", "avg"), mv_table)
+    plan.join, plan.aggs = join, (final, avg)
+    return plan
+
+
+def q7(bid: Executor, bid_max: Executor, mv_table: StateTable, *,
+       key_capacity: int = 1 << 13, bucket_width: int = 16,
+       agg_capacity: int = 1 << 16, out_capacity: int = 1024,
+       device=DEFAULT_DEVICE) -> Plan:
+    """``bid_max``: a second source of the same bids (the subquery's).
+    ``mv_table``: schema ``q7_schema()``, pk (4, 5)."""
+    left = _project(with_row_id(bid, 0, device), (0, 1, 2, 5, 7),
+                    ("auction", "bidder", "price", "date_time", "_row_id"))
+    _, end = _tumble(5)
+    windows = ProjectExecutor(with_row_id(bid_max, 0, device),
+                              [end, _i64(2)], ("date_time", "price"))
+    top = HashAggExecutor(windows, [0], [agg("max", 1, INT64)],
+                          table_capacity=agg_capacity,
+                          out_capacity=out_capacity, device=device)
+    right = _project(top, (1, 0), ("maxprice", "date_time"))
+    join = HashJoinExecutor(left, right, [2], [0], JoinType.INNER,
+                            key_capacity=key_capacity,
+                            bucket_width=bucket_width,
+                            out_capacity=out_capacity, device=device)
+    ts, end_col = col(3, TIMESTAMP), col(6, TIMESTAMP)
+    within = FilterExecutor(join, call(
+        "and", call("greater_than_or_equal", ts,
+                    call("subtract", end_col, _lit(TUMBLE_SIZE, INT64))),
+        call("less_than_or_equal", ts, end_col)))
+    plan = _mv(within, (0, 2, 1, 3, 4, 6),
+               ("auction", "price", "bidder", "date_time", "_pk0", "_pk1"),
+               mv_table)
+    plan.join, plan.aggs = join, (top,)
+    return plan
+
+
+def q8(person: Executor, auction: Executor, mv_table: StateTable, *,
+       key_capacity: int = 1 << 13, bucket_width: int = 16,
+       agg_capacity: int = 1 << 16, out_capacity: int = 1024,
+       device=DEFAULT_DEVICE) -> Plan:
+    """``mv_table``: schema ``q8_schema()``, pk (0, 1, 2, 3, 4, 5, 6)."""
+    p_start, p_end = _tumble(6)
+    p = ProjectExecutor(with_row_id(person, 0, device),
+                        [_i64(0), col(1, VARCHAR), p_start, p_end],
+                        ("id", "name", "starttime", "endtime"))
+    p_groups = HashAggExecutor(p, [0, 1, 2, 3], [],
+                               table_capacity=agg_capacity,
+                               out_capacity=out_capacity, device=device)
+    a_start, a_end = _tumble(5)
+    a = ProjectExecutor(with_row_id(auction, 0, device),
+                        [_i64(7), a_start, a_end],
+                        ("seller", "starttime", "endtime"))
+    a_groups = HashAggExecutor(a, [0, 1, 2], [],
+                               table_capacity=agg_capacity,
+                               out_capacity=out_capacity, device=device)
+    join = HashJoinExecutor(_project(p_groups, (0, 1, 2, 3),
+                                     ("id", "name", "starttime", "endtime")),
+                            _project(a_groups, (0, 1, 2),
+                                     ("seller", "starttime", "endtime")),
+                            [0, 2, 3],
+                            [0, 1, 2], JoinType.INNER,
+                            key_capacity=key_capacity,
+                            bucket_width=bucket_width,
+                            out_capacity=out_capacity, device=device)
+    plan = _mv(join, range(7), ("id", "name", "starttime", "_pk3", "_pk4",
+                                "_pk5", "_pk6"), mv_table)
+    plan.join, plan.aggs = join, (p_groups, a_groups)
+    return plan
+
+
+def q1_schema() -> Schema:
+    return Schema.of(("auction", INT64), ("bidder", INT64),
+                     ("price", INT64), ("date_time", TIMESTAMP),
+                     ("_pk0", SERIAL))
+
+
+def q2_schema() -> Schema:
+    return Schema.of(("auction", INT64), ("price", INT64), ("_pk0", SERIAL))
+
+
+def q3_schema() -> Schema:
+    return Schema.of(("name", VARCHAR), ("city", VARCHAR),
+                     ("state", VARCHAR), ("id", INT64), ("_pk0", SERIAL),
+                     ("_pk1", SERIAL))
+
+
+def q4_schema() -> Schema:
+    from ..common.types import FLOAT64
+    return Schema.of(("category", INT64), ("avg", FLOAT64))
+
+
+def q7_schema() -> Schema:
+    return Schema.of(("auction", INT64), ("price", INT64),
+                     ("bidder", INT64), ("date_time", TIMESTAMP),
+                     ("_pk0", SERIAL), ("_pk1", TIMESTAMP))
+
+
+def q8_schema() -> Schema:
+    return Schema.of(("id", INT64), ("name", VARCHAR),
+                     ("starttime", TIMESTAMP), ("_pk3", TIMESTAMP),
+                     ("_pk4", INT64), ("_pk5", TIMESTAMP),
+                     ("_pk6", TIMESTAMP))

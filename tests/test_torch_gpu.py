@@ -13,8 +13,11 @@ with synchronizing calls made errors; HopWindow's batch, q5 over HOP
 windows, the EOWC running window (the Sort's row set rebuilt, and its
 recovery) on the card against the CPU, kernel B3's lowest-row winner among
 in-chunk duplicates on both of its paths, and the new executors' batched
-ingest with synchronizing calls made errors. They skip where no card is
-present;
+ingest with synchronizing calls made errors; TPC-H q3 and q10 over table
+jobs (load, backfill, one RF1 and one RF2) and the DECIMAL/DATE
+expressions, string functions and DECIMAL aggs on the card against the
+CPU, and the Backfill's ChunkBatch filter with synchronizing calls made
+errors. They skip where no card is present;
 run them on the card
 with ``python -m pytest tests/test_torch_gpu.py -m gpu``.
 """
@@ -716,3 +719,147 @@ def test_new_batched_ingest_makes_no_host_sync(cuda):
         asyncio.run(run())
     torch.cuda.synchronize()
     assert int(agg.state.table.occupied.sum()) > 0
+
+
+def _tpch_mvs(device):
+    """TPC-H q3 and q10 over tables loaded through DML from the smoke's
+    generator (SF 0.002), backfilled, then one RF1 and one RF2 of 300
+    orders each: the MVs' physical rows after the backfill and after each
+    refresh."""
+    import numpy as np
+    from risingwave_tpu_torch.frontend.runtime import Cluster
+    from risingwave_tpu_torch.stream import tpch_plans as tp
+    live = cs.tpch_tables(0.002, 3)
+    new, gone = cs.tpch_refresh(np.random.default_rng(4), 0, 0.002, live,
+                                n=300)
+    cl = Cluster(device=device, chunk_capacity=256)
+    tp.create_tables(cl)
+    for name, cols in live.items():
+        for ch in cs.tpch_chunks(tp.TABLES[name][0], cols, 0, device, 256):
+            cl.write(name, ch)
+        cl.tick()
+    q3s, q10s = cs.tpch_sizes(0.002)
+    tp.create_q3(cl, q3s)
+    tp.create_q10(cl, q10s)
+    while not (cl.backfill_done("q3") and cl.backfill_done("q10")):
+        cl.tick()
+    out = []
+
+    def snap():
+        out.append({n: sorted(cl.jobs[n].table.scan_all())
+                    for n in ("q3", "q10")})
+
+    snap()
+    for name in ("orders", "lineitem"):
+        for ch in cs.tpch_chunks(tp.TABLES[name][0], new[name], 0, device,
+                                 256):
+            cl.write(name, ch)
+    cl.tick()
+    snap()
+    for name in ("orders", "lineitem"):
+        sel = np.isin(live[name][0], gone)
+        for ch in cs.tpch_chunks(tp.TABLES[name][0],
+                                 [c[sel] for c in live[name]], 1, device,
+                                 256):
+            cl.write(name, ch)
+    cl.tick()
+    snap()
+    cl.close()
+    return out
+
+
+def test_tpch_q3_q10_on_card_equal_cpu(cuda):
+    card = _tpch_mvs("cuda")
+    assert card == _tpch_mvs("cpu")
+    assert all(len(s["q3"]) > 0 and len(s["q10"]) > 0 for s in card)
+    assert card[0] != card[1] != card[2]
+
+
+def _decimal_date_run(device):
+    """DECIMAL and DATE expressions, string functions and DECIMAL aggs over
+    one chunk: each result as host lists."""
+    from risingwave_tpu_torch.common import (
+        DATE, INT64, VARCHAR, Schema, chunk_to_rows, decimal, make_chunk,
+    )
+    from risingwave_tpu_torch.expr import AggCall, Literal, call, col
+    from risingwave_tpu_torch.expr.expr import cast, make_extract
+    from risingwave_tpu_torch.stream import (
+        Barrier, HashAggExecutor, MockSource,
+    )
+    d2 = decimal(2)
+    sch = Schema.of(("d", DATE), ("p", d2), ("q", d2), ("s", VARCHAR))
+    rows = [(9204, 100.5, 0.1, "hello"), (-1, -9.99, None, "HELLO"),
+            (-719468, 2.5, 9.99, "a%b"), (9204, None, 0.0, "spark")] * 16
+    chunk = make_chunk(sch, rows, capacity=64, device=device)
+    p, q, d, s = col(1, d2), col(2, d2), col(0, DATE), col(3, VARCHAR)
+    exprs = [call("multiply", p, call("subtract", Literal(1, INT64), q)),
+             call("add", p, q), cast(p, INT64), cast(p, decimal(0)),
+             call("case", call("greater_than", p, Literal(2, INT64)), p,
+                  Literal(1, INT64)),
+             call("less_than", d, Literal(9204, DATE)),
+             make_extract("year", d), make_extract("doy", d),
+             call("upper", s), call("like", s, Literal("h%", VARCHAR))]
+    out = [[c.data.cpu().tolist(), c.mask.cpu().tolist()]
+           for c in (e.eval(chunk) for e in exprs)]
+    calls = [AggCall(k, 1, d2) for k in ("sum", "min", "max", "avg")]
+    agg = HashAggExecutor(MockSource(sch, [Barrier.new(1), chunk,
+                                           Barrier.new(2)]), [0], calls,
+                          table_capacity=64, out_capacity=64,
+                          device=device)
+
+    async def drain():
+        got = []
+        async for m in agg.execute():
+            if not isinstance(m, Barrier):
+                got.extend(chunk_to_rows(m, agg.schema, with_ops=True))
+        return sorted(got)
+
+    out.append(asyncio.run(drain()))
+    return out
+
+
+def test_decimal_date_expressions_and_aggs_on_card_equal_cpu(cuda):
+    assert _decimal_date_run("cuda") == _decimal_date_run("cpu")
+
+
+def test_backfill_batched_ingest_makes_no_host_sync(cuda):
+    """A Backfill mid-way (its cursor set by one snapshot batch) filters a
+    ChunkBatch of live deltas on a (VARCHAR, BIGINT) pk with synchronizing
+    CUDA calls made errors; the rows it keeps are those at or before the
+    cursor."""
+    from risingwave_tpu_torch.common import (
+        GLOBAL_STRING_DICT, INT64, VARCHAR, Schema, chunk_to_rows,
+        flatten_shards, make_chunk, stack_chunks,
+    )
+    from risingwave_tpu_torch.storage import MemoryStateStore, StateTable
+    from risingwave_tpu_torch.stream import Barrier, MockSource
+    from risingwave_tpu_torch.stream.backfill import BackfillExecutor
+    sch = Schema.of(("s", VARCHAR), ("k", INT64), ("v", INT64))
+    keys = [(f"{(k * 7919) % 1000:03d}", k) for k in range(200)]
+    store = MemoryStateStore()
+    table = StateTable(store, 1, sch, [0, 1])
+    for s, k in keys:
+        table.insert((VARCHAR.to_physical(s), k, k))
+    table.commit(1)
+    store.commit(1)
+    batch = stack_chunks([make_chunk(sch, [(s, k, -k) for s, k in
+                                           keys[i::4]], capacity=64,
+                                     device="cuda") for i in range(4)])
+    bf = BackfillExecutor(MockSource(sch, [Barrier.new(2), batch]), table,
+                          batch_rows=50, chunk_capacity=64, device="cuda")
+    gen = bf.execute()
+
+    async def step():
+        return await gen.__anext__()
+
+    loop = asyncio.new_event_loop()
+    while not isinstance(loop.run_until_complete(step()), Barrier):
+        pass
+    GLOBAL_STRING_DICT.device_ranks("cuda")      # the rank table, cached
+    with cs.no_host_sync():
+        out = loop.run_until_complete(step())
+    loop.close()
+    kept = sorted(r[:2] for r in chunk_to_rows(flatten_shards(out.chunk),
+                                               sch))
+    first = sorted(keys)[:50]
+    assert kept == sorted(first) and len(kept) == 50
