@@ -130,19 +130,40 @@ Phases (any failure exits non-zero and prints no result line):
      busy share of one refresh epoch, B1 and B3 launches, peak device
      memory; B1's busiest join input and B3's busiest join-key and agg
      inputs kept;
- 22. each kernel and its plain version timed on the inputs its path gave
-     it, as in phase 2 (B1 on q7's, q105's, q5_hop's and the TPC-H joins'
-     busiest inputs and summed over every input of the q7 run, with each
-     input's count of keyed rows; B2 on the fused q7 run's last flush; B3
-     on the q5 compaction's input and on the eleven inputs kept in phases
-     13-21, each also held against the plain version slot for slot on both of its
-     paths); then profiled runs (q7 and q5 executors, two epochs of q105,
+ 22. the rest of the NEXmark suite over phase 13's chunks (q0, q9, q10,
+     q14-q17, q20-q22, q101, q103, q104, q106, the reference planner's
+     trees at q105's capacities; q9's GroupTopN ``Q9_TOPN_CAPACITY``),
+     each MV equal to a numpy and Python recomputation over the same rows
+     (``ExtData``); source rows/s, rows out, B1 and B3 launches per query;
+     B1's busiest input over q9 and q20 and B3's at q17's group table
+     kept; then q17 as a multi-fragment job (bids as one ChunkBatch per
+     epoch → RowIdGen → Project(to_char) → HashDispatcher over (auction,
+     day) → HashAgg actors sharing one state table → Merge): rows/s at
+     parallelism 1 and 4, each MV gated; one epoch of the
+     dispatcher's split and the 4 actors' batched ingest under the sync
+     check; then at parallelism 4 into a SinkExecutor over a jsonl
+     FileSink, every barrier a checkpoint: ``sink.deliver`` fails for
+     ``SINK_DEGRADE_AFTER`` epochs, the sink degrades and its log takes
+     the changes, ``resume()``, the next epoch drains the log, the job is
+     dropped there and recovered at parallelism 2 from the store, its last
+     epoch delivered; the file's changelog must fold to numpy's q17 and
+     hold exactly the rows logged (sink ms per barrier, recovery seconds);
+     then q20's join as 4 actors (a quarter of the keys each), gated as
+     above;
+ 23. each kernel and its plain version timed on the inputs its path gave
+     it, as in phase 2 (B1 on q7's, q105's, q5_hop's, the TPC-H joins' and
+     q9's or q20's busiest inputs and summed over every input of the q7
+     run, with each input's count of keyed rows; B2 on the fused q7 run's
+     last flush; B3 on the q5 compaction's input and on the twelve inputs
+     kept in phases 13-22, each also held against the plain version slot
+     for slot on both of its paths); then profiled runs (q7 and q5
+     executors, two epochs of q105,
      q18, the EOWC running window and q5 over HOP windows, one fused q7,
      q5, q8 and q3 epoch): the device's busy share and top kernels; then
      one JSON line of every kernel: launches on its paths' runs (B1's and
      B3's on each path's run), exact agreement, its time and its plain
      version's, and its bound on an H100;
- 23. the last line: ``{"ok": true, "device": {...}}``.
+ 24. the last line: ``{"ok": true, "device": {...}}``.
 
 It imports nothing of JAX and nothing of the JAX package.
 """
@@ -3279,6 +3300,667 @@ def run_tpch(device, sf: float = None, seed: int = TPCH_SEED,
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 22: the rest of the NEXmark suite, q17 as a multi-fragment job into
+# a sink, and q20's join as a fragmented join
+# ---------------------------------------------------------------------------
+
+EXT_QUERIES = ("q0", "q9", "q10", "q14", "q15", "q16", "q17", "q20", "q21",
+               "q22", "q101", "q103", "q104", "q106")
+EXT_JOINS = ("q9", "q20", "q101", "q103", "q104", "q106")
+#: MV pks that are not the hidden ``_pk`` columns
+EXT_PK = {"q15": [0], "q16": [0, 1], "q17": [0, 1], "q106": []}
+# q17 as a multi-fragment job: 4 agg actors, recovered at 2; the sink
+# degrades after two failed epochs (a fast retry: 2 attempts, 0.5 ms)
+Q17_PARALLELISM = 4
+Q17_RECOVERY_PARALLELISM = 2
+SINK_DEGRADE_AFTER = 2
+# q9's GroupTopN holds every join row inside its auction's window (3.67M
+# over the phase's chunks), so its row set is larger than q105's TopN: at
+# 1<<22 (load 0.88) linear probing ran past its 128 rounds
+Q9_TOPN_CAPACITY = 1 << 23
+# q20's join as 4 actors: each holds a quarter of the 1<<16 keys, at the
+# single join's bucket width. Every actor gets every chunk (masked to its
+# shard), and a join stages ``emit_batch`` passes of N x (2W + 1) output
+# lanes (~1.5 GB each here) before its one read: at the default 16, four
+# actors ran the card out of its 80 GB, so each stages 4
+Q20_PARALLELISM = 4
+Q20_EMIT_BATCH = 4
+USECS_PER_MIN = 60_000_000
+USECS_PER_DAY = 86_400_000_000
+
+
+def decode(ids: np.ndarray) -> np.ndarray:
+    """Dictionary ids as an object array of their strings."""
+    from risingwave_tpu_torch.common import GLOBAL_STRING_DICT
+    uniq, inv = np.unique(ids, return_inverse=True)
+    strs = np.array([GLOBAL_STRING_DICT.lookup(int(u)) for u in uniq]
+                    + [""], dtype=object)[:-1]
+    return strs[inv.reshape(-1)]
+
+
+def civil(ts: np.ndarray, unit: int, fmt) -> np.ndarray:
+    """``fmt(datetime)`` of each timestamp floored to ``unit``, formatted
+    once per distinct value."""
+    import datetime
+    epoch = datetime.datetime(1970, 1, 1)
+    floors = ts // unit
+    uniq, inv = np.unique(floors, return_inverse=True)
+    strs = np.array([fmt(epoch + datetime.timedelta(microseconds=int(u)
+                                                     * unit)) for u in uniq]
+                    + [""], dtype=object)[:-1]
+    return strs[inv.reshape(-1)]
+
+
+class ExtData:
+    """Both sources' generated rows on the host, and the numpy and Python
+    recomputations of the extended queries over them (MV rows as python
+    values, the hidden pk columns left out)."""
+
+    def __init__(self, auctions, bids):
+        (self.b_auction, self.b_bidder, self.b_price, ch, url,
+         self.b_ts) = host_cols(bids, (0, 1, 2, 3, 4, 5))
+        (self.a_id, item, self.a_ts, self.a_exp, self.a_seller,
+         self.a_cat) = host_cols(auctions, (0, 1, 5, 6, 7, 8))
+        self.b_channel, self.b_url = decode(ch), decode(url)
+        self.a_item = decode(item)
+        self.day = civil(self.b_ts, USECS_PER_DAY,
+                         lambda d: f"{d.year:04d}-{d.month:02d}-{d.day:02d}")
+        self.hhmi = civil(self.b_ts, USECS_PER_MIN,
+                          lambda d: f"{(d.hour % 12) or 12:02d}:"
+                                    f"{d.minute:02d}")
+        self._pairs = None
+        self._expected: dict = {}
+
+    def pairs(self):
+        """(auction row, bid row) index pairs of auction.id = bid.auction."""
+        if self._pairs is None:
+            order = np.argsort(self.b_auction, kind="stable")
+            keys = self.b_auction[order]
+            lo = np.searchsorted(keys, self.a_id, "left")
+            counts = np.searchsorted(keys, self.a_id, "right") - lo
+            a_idx = np.repeat(np.arange(len(self.a_id)), counts)
+            first = np.cumsum(counts) - counts
+            pos = np.arange(counts.sum()) - first[a_idx] + lo[a_idx]
+            self._pairs = (a_idx, order[pos])
+        return self._pairs
+
+    def windowed(self):
+        """The pairs whose bid lies in its auction row's [date_time,
+        expires]."""
+        a, b = self.pairs()
+        keep = (self.b_ts[b] >= self.a_ts[a]) & (self.b_ts[b] <= self.a_exp[a])
+        return a[keep], b[keep]
+
+    def n_bids(self) -> dict:
+        ids, n = np.unique(self.b_auction, return_counts=True)
+        return dict(zip(ids.tolist(), n.tolist()))
+
+    @staticmethod
+    def rows(*cols) -> collections.Counter:
+        return collections.Counter(zip(*(
+            c.tolist() if isinstance(c, np.ndarray) and c.dtype != object
+            else list(c) for c in cols)))
+
+    def expected(self, name: str):
+        """The MV rows of query ``name``, computed once."""
+        if name not in self._expected:
+            self._expected[name] = self.recompute(name)
+        return self._expected[name]
+
+    def recompute(self, name: str):
+        b = (self.b_auction, self.b_bidder, self.b_price)
+        if name == "q0":
+            return self.rows(*b, self.b_ts)
+        if name == "q10":
+            return self.rows(*b, self.b_ts, self.day, self.hhmi)
+        if name == "q14":
+            p = 908 * self.b_price // 1000
+            k = p > 1000
+            hour = (self.b_ts[k] // 3_600_000_000) % 24
+            kind = np.where((hour >= 8) & (hour <= 18), "dayTime",
+                            np.where((hour <= 6) | (hour >= 20),
+                                     "nightTime", "otherTime")).astype(object)
+            return self.rows(self.b_auction[k], self.b_bidder[k], p[k], kind,
+                             self.b_ts[k])
+        if name == "q15":
+            return self.q15()
+        if name == "q16":
+            return self.q16()
+        if name == "q17":
+            return self.q17()
+        if name == "q20":
+            a, bi = self.pairs()
+            k = self.a_cat[a] == 10
+            a, bi = a[k], bi[k]
+            return self.rows(self.b_auction[bi], self.b_bidder[bi],
+                             self.b_price[bi], self.b_channel[bi],
+                             self.a_item[a], self.a_seller[a], self.a_cat[a])
+        if name == "q21":
+            return self.q21()
+        if name == "q22":
+            def part(u, n):
+                ps = u.split("/")
+                return ps[n - 1] if n - 1 < len(ps) else ""
+            uniq, inv = np.unique(self.b_url, return_inverse=True)
+            dirs = [np.array([part(u, n) for u in uniq] + [""],
+                             dtype=object)[:-1][inv.reshape(-1)]
+                    for n in (4, 5, 6)]
+            return self.rows(*b, self.b_channel, *dirs)
+        if name == "q101":
+            best: dict = {}
+            order = np.lexsort((self.b_price, self.b_auction))
+            last = np.r_[self.b_auction[order][1:] != self.b_auction[order][:-1],
+                         True]
+            best = dict(zip(self.b_auction[order][last].tolist(),
+                            self.b_price[order][last].tolist()))
+            return collections.Counter(
+                (i, it, best.get(i)) for i, it in zip(self.a_id.tolist(),
+                                                      self.a_item))
+        if name in ("q103", "q104"):
+            n = self.n_bids()
+            keep = ((lambda c: c >= 2) if name == "q103"
+                    else (lambda c: not 0 < c < 2))
+            return collections.Counter(
+                (i, it) for i, it in zip(self.a_id.tolist(), self.a_item)
+                if keep(n.get(i, 0)))
+        if name == "q106":
+            a, bi = self.windowed()
+            ids = self.a_id[a]
+            final = {}
+            for i, p in zip(ids.tolist(), self.b_price[bi].tolist()):
+                if p > final.get(i, -1):
+                    final[i] = p
+            return collections.Counter({(min(final.values()),): 1})
+        raise KeyError(name)
+
+    def q9(self) -> dict:
+        """id -> (price, date_time, tied bidders, item names of the id)."""
+        a, bi = self.windowed()
+        order = np.lexsort((self.b_ts[bi], -self.b_price[bi], self.a_id[a]))
+        ids = self.a_id[a][order]
+        price, ts = self.b_price[bi][order], self.b_ts[bi][order]
+        bidder = self.b_bidder[bi][order]
+        first = np.r_[True, ids[1:] != ids[:-1]]
+        head = np.cumsum(first) - 1
+        starts = np.nonzero(first)[0]
+        tied = ((price == price[starts][head]) & (ts == ts[starts][head]))
+        names: dict = {}
+        for i, it in zip(self.a_id.tolist(), self.a_item):
+            names.setdefault(i, set()).add(it)
+        win = {int(ids[j]): [(int(price[j]), int(ts[j])), set(),
+                             names[int(ids[j])]] for j in starts.tolist()}
+        for i, b in zip(ids[tied].tolist(), bidder[tied].tolist()):
+            win[i][1].add(b)
+        return win
+
+    def q15(self):
+        out = collections.Counter()
+        p = self.b_price
+        for day in np.unique(self.day):
+            m = self.day == day
+            r1, r3 = m & (p < 10_000), m & (p >= 1_000_000)
+            r2 = m & (p >= 10_000) & (p < 1_000_000)
+            out[(day, int(m.sum()), int(r1.sum()), int(r2.sum()),
+                 int(r3.sum()), len(np.unique(self.b_bidder[m])),
+                 len(np.unique(self.b_bidder[r1])),
+                 len(np.unique(self.b_auction[m])),
+                 len(np.unique(self.b_auction[r3])))] += 1
+        return out
+
+    def q16(self):
+        out = collections.Counter()
+        keys = np.char.add(self.b_channel.astype(str),
+                           np.char.add("\t", self.day.astype(str)))
+        for key in np.unique(keys):
+            m = keys == key
+            ch, day = str(key).split("\t")
+            out[(ch, day, max(self.hhmi[m]), int(m.sum()),
+                 int((m & (self.b_price < 10_000)).sum()),
+                 len(np.unique(self.b_bidder[m])),
+                 len(np.unique(self.b_auction[m])))] += 1
+        return out
+
+    def q17(self):
+        days = self.b_ts // USECS_PER_DAY
+        keys = np.stack([self.b_auction, days], 1)
+        uniq, inv = np.unique(keys, axis=0, return_inverse=True)
+        inv = inv.reshape(-1)
+        g = len(uniq)
+        n = np.bincount(inv, minlength=g)
+        rank1 = np.bincount(inv, weights=self.b_price < 10_000,
+                            minlength=g).astype(np.int64)
+        lo = np.full(g, np.iinfo(np.int64).max)
+        hi = np.full(g, np.iinfo(np.int64).min)
+        total = np.zeros(g, np.int64)
+        np.minimum.at(lo, inv, self.b_price)
+        np.maximum.at(hi, inv, self.b_price)
+        np.add.at(total, inv, self.b_price)
+        day_of = {}
+        for d, s in zip(days.tolist(), self.day):
+            day_of[d] = s
+        return collections.Counter(
+            (int(a), day_of[int(d)], int(c), int(r), int(mn), int(mx),
+             int(s) / int(c), int(s))
+            for (a, d), c, r, mn, mx, s in zip(uniq, n, rank1, lo, hi,
+                                               total))
+
+    def q21(self):
+        import re
+        rx = re.compile(r"(&|^)channel_id=([^&]*)")
+        known = {"apple": "0", "google": "1", "facebook": "2",
+                 "baidu": "3"}
+        uniq, inv = np.unique(self.b_url, return_inverse=True)
+        ids = []
+        for u in uniq:
+            m = rx.search(u)
+            ids.append(None if m is None else m.group(2))
+        from_url = np.array(ids + [None], dtype=object)[:-1][
+            inv.reshape(-1)]
+        out = collections.Counter()
+        for row in zip(self.b_auction.tolist(), self.b_bidder.tolist(),
+                       self.b_price.tolist(), self.b_channel, from_url):
+            cid = known.get(row[3].lower(), row[4])
+            if cid is not None:
+                out[row[:4] + (cid,)] += 1
+        return out
+
+
+def ext_plan(name: str, device, auctions, bids, store=None):
+    """A fresh plan of one extended query over these chunks at q105's
+    capacities (join 1<<16 keys × bucket width 2048, agg 1<<19; q9's
+    GroupTopN Q9_TOPN_CAPACITY)."""
+    from risingwave_tpu_torch.connector import AUCTION_SCHEMA, BID_SCHEMA
+    from risingwave_tpu_torch.storage import MemoryStateStore, StateTable
+    from risingwave_tpu_torch.stream import nexmark_plans as plans
+    store = MemoryStateStore() if store is None else store
+    schema = getattr(plans, f"{name}_schema")()
+    pk = EXT_PK.get(name, [i for i, f in enumerate(schema)
+                           if f.name.startswith("_pk")])
+    mv = StateTable(store, 1, schema, pk)
+    bid = epoch_source(BID_SCHEMA, bids)
+    join = dict(key_capacity=Q105_KEY_CAPACITY,
+                bucket_width=Q105_BUCKET_WIDTH, out_capacity=CHUNK,
+                device=device)
+    build = getattr(plans, name)
+    if name in ("q0", "q10", "q14", "q21", "q22"):
+        return build(bid, mv, device=device)
+    if name in ("q15", "q16"):
+        return build(bid, mv, out_capacity=CHUNK, device=device)
+    if name == "q17":
+        return build(bid, mv, agg_capacity=Q105_AGG_CAPACITY,
+                     out_capacity=CHUNK, device=device)
+    auction = epoch_source(AUCTION_SCHEMA, auctions)
+    if name == "q9":
+        return build(auction, bid, mv, topn_capacity=Q9_TOPN_CAPACITY,
+                     **join)
+    if name == "q20":
+        return build(bid, auction, mv, **join)
+    return build(auction, bid, mv, agg_capacity=Q105_AGG_CAPACITY, **join)
+
+
+async def drive_timed(executor) -> float:
+    """Run ``executor`` to its end; seconds after its second barrier (the
+    warm-up epoch's end), the card synchronized at both ends."""
+    from risingwave_tpu_torch.stream import Barrier
+    seen, t0 = 0, None
+    async for m in executor.execute():
+        if isinstance(m, Barrier):
+            seen += 1
+            if seen == 2:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+    torch.cuda.synchronize()
+    return time.perf_counter() - t0
+
+
+def mv_visible(mv) -> collections.Counter:
+    """An MV's rows without the hidden ``_pk`` columns."""
+    width = sum(not f.name.startswith("_pk") for f in mv.schema)
+    return collections.Counter(r[:width] for r in mv.rows())
+
+
+def check_q9(got: collections.Counter, want: dict) -> None:
+    """q9: one row per auction id, its winning bid's (price, date_time)
+    exact, its bidder among the bids tied on both, its item_name among the
+    id's auction rows' (item_name is not determined by the order)."""
+    if sum(got.values()) != len(want) or len(got) != len(want):
+        raise AssertionError(f"q9 holds {sum(got.values())} rows, numpy "
+                             f"{len(want)} auction ids")
+    for (i, item, auction, bidder, price, ts), n in got.items():
+        key, bidders, names = want[i]
+        if (n != 1 or auction != i or (price, ts) != key
+                or bidder not in bidders or item not in names):
+            raise AssertionError(f"q9 row of id {i} differs from numpy's "
+                                 f"winning bid {key}")
+
+
+def run_nexmark_extended(device, auctions, bids, data: ExtData) -> dict:
+    """Phase 22 (a): the fourteen queries, each a fresh plan over the
+    phase-13 chunks (one warm-up and three timed epochs of 16 chunks per
+    source leaf), each MV gated against ``data``'s recomputation. Kernel
+    B1's busiest input over q9 and q20 and B3's busiest input at q17's
+    group table are returned under ``b1_input`` and ``b3_inputs``."""
+    rt_mod = importlib.import_module("risingwave_tpu_torch.ops.rank_totals")
+    out = {}
+    b3_inputs = {}
+    b1_input = None
+    for name in EXT_QUERIES:
+        torch.cuda.empty_cache()
+        plan = ext_plan(name, device, auctions, bids)
+        with contextlib.ExitStack() as watch:
+            b1 = (watch.enter_context(busiest_rank_input())
+                  if name in ("q9", "q20") else None)
+            b3 = (watch.enter_context(captured_probe_inputs({
+                "q17 HashAgg groups":
+                    "risingwave_tpu_torch.ops.grouped_agg"}))
+                  if name == "q17" else None)
+            b3_launches(reset=True)
+            rt_mod.rank_totals.launches = 0
+            t0 = time.perf_counter()
+            secs = asyncio.run(drive_timed(plan.mv))
+            wall = time.perf_counter() - t0
+            launches = (rt_mod.rank_totals.launches, b3_launches())
+        if b3 is not None:
+            b3_inputs.update(b3)
+        if b1 is not None and (b1_input is None
+                               or b1["keyed_rows"] > b1_input["keyed_rows"]):
+            b1_input = dict(b1, query=name)
+        if plan.join is not None and (
+                plan.join.core.W != Q105_BUCKET_WIDTH
+                or plan.join.core.capacity != Q105_KEY_CAPACITY):
+            raise AssertionError(f"the {name} join grew: size it larger")
+        t1 = time.perf_counter()
+        got = mv_visible(plan.mv)
+        if name == "q9":
+            check_q9(got, data.q9())
+        else:
+            want = data.expected(name)
+            if got != want:
+                raise AssertionError(
+                    f"{name} MV differs from numpy's: "
+                    f"{sum((got - want).values())} extra, "
+                    f"{sum((want - got).values())} missing rows")
+        leaves = 2 if name in EXT_JOINS else 1
+        timed_rows = leaves * (NEX_EPOCHS - 1) * NEX_CHUNKS_PER_EPOCH * CHUNK
+        out[name] = {"source_rows_per_s": timed_rows / secs,
+                     "rows_out": sum(got.values()),
+                     "b1_launches": launches[0], "b3_launches": launches[1],
+                     "run_s": wall, "gate_s": time.perf_counter() - t1}
+        del plan
+    return {"queries": out, "b1_input": b1_input, "b3_inputs": b3_inputs}
+
+
+def q17_batches(bids) -> list:
+    """The bids as one ChunkBatch per epoch."""
+    from risingwave_tpu_torch.common import stack_chunks
+    return [stack_chunks(bids[i:i + NEX_CHUNKS_PER_EPOCH])
+            for i in range(0, len(bids), NEX_CHUNKS_PER_EPOCH)]
+
+
+def batch_source(batches, first_epoch: int = 1):
+    """A checkpoint barrier, then per epoch its batch and a checkpoint
+    barrier."""
+    from risingwave_tpu_torch.connector import BID_SCHEMA
+    from risingwave_tpu_torch.stream import Barrier, MockSource
+    msgs = [Barrier.new(first_epoch, checkpoint=True)]
+    for i, b in enumerate(batches):
+        msgs += [b, Barrier.new(first_epoch + 1 + i, checkpoint=True)]
+    return MockSource(BID_SCHEMA, msgs)
+
+
+def q17_job(device, src, parallelism: int, store=None):
+    """q17 as a multi-fragment job: bids → RowIdGen → Project(to_char) →
+    HashDispatcher over (auction, day) → ``parallelism`` HashAgg actors
+    sharing one state table (id 2 of ``store``) → Merge → Project.
+    Returns (the fragment graph, its root)."""
+    from risingwave_tpu_torch.frontend.fragments import build_fragmented_agg
+    from risingwave_tpu_torch.storage import StateTable
+    from risingwave_tpu_torch.stream import nexmark_plans as plans
+    from risingwave_tpu_torch.stream.hash_agg import agg_state_schema
+    inp = plans.q17_input(src, device)
+    st = None
+    if store is not None:
+        st = StateTable(store, 2, agg_state_schema(
+            [inp.schema[0], inp.schema[1]], plans.q17_calls()), [0, 1])
+    graph = build_fragmented_agg(
+        inp, [0, 1], plans.q17_calls(), state_table=st,
+        parallelism=parallelism, table_capacity=Q105_AGG_CAPACITY,
+        out_capacity=CHUNK, device=device)
+    return graph, plans.q17_output(graph)
+
+
+def timed_sink(out, path, store, **kw):
+    """A SinkExecutor into a jsonl FileSink whose barrier work is timed
+    (``barrier_ms``), its log and progress tables ids 10 and 11."""
+    from risingwave_tpu_torch.common.config import FaultConfig
+    from risingwave_tpu_torch.connector.sinks import FileSink
+    from risingwave_tpu_torch.storage import StateTable
+    from risingwave_tpu_torch.stream.sink import (
+        PROGRESS_SCHEMA, SinkExecutor, log_table_schema,
+    )
+
+    class TimedSink(SinkExecutor):
+        async def on_barrier(self, barrier):
+            t0 = time.perf_counter()
+            async for m in super().on_barrier(barrier):
+                yield m
+            self.barrier_ms.append((time.perf_counter() - t0) * 1e3)
+
+    policy = FaultConfig(sink_retry_attempts=2, sink_retry_base_ms=0.5,
+                         sink_retry_deadline_ms=50.0).sink_retry_policy()
+    sink = TimedSink(out, FileSink(path, out.schema),
+                     StateTable(store, 10, log_table_schema(out.schema),
+                                [0, 1]),
+                     StateTable(store, 11, PROGRESS_SCHEMA, [0]),
+                     retry_policy=policy, degrade_after=SINK_DEGRADE_AFTER,
+                     **kw)
+    sink.barrier_ms = []
+    return sink
+
+
+async def drive_sink(sink, store, actions: dict, stop_after=None):
+    """Run ``sink`` (each checkpoint barrier commits ``store``, then
+    ``actions[epoch]()`` runs); stop at epoch ``stop_after`` (a drop: the
+    job is abandoned there)."""
+    from risingwave_tpu_torch.stream import Barrier
+    async for m in sink.execute():
+        if isinstance(m, Barrier):
+            if m.checkpoint:
+                store.commit(m.epoch.curr)
+            if m.epoch.curr in actions:
+                actions[m.epoch.curr]()
+            if m.epoch.curr == stop_after:
+                return
+
+
+def replay_changelog(path: str) -> collections.Counter:
+    """The rows a jsonl changelog folds to."""
+    rows = collections.Counter()
+    with open(path, encoding="utf-8") as f:
+        for line in f:
+            obj = json.loads(line)
+            op = obj.pop("__op")
+            row = tuple(obj.values())
+            rows[row] += 1 if op in ("insert", "update_insert") else -1
+    if any(n < 0 for n in rows.values()):
+        raise AssertionError("the sink's changelog deletes a row it never "
+                             "inserted")
+    return +rows
+
+
+async def dispatch_sync_free_epoch(device, batch) -> None:
+    """One epoch's ChunkBatch, projected outside the check, through a
+    HashDispatcher over (auction, day) into 4 channels and each agg
+    actor's batched ingest, with synchronizing CUDA calls made errors."""
+    from risingwave_tpu_torch.stream import (
+        Barrier, HashAggExecutor, MockSource, nexmark_plans as plans,
+    )
+    from risingwave_tpu_torch.connector import BID_SCHEMA
+    from risingwave_tpu_torch.stream.dispatch import (
+        ChannelSource, HashDispatcher, open_channel,
+    )
+    inp = plans.q17_input(MockSource(BID_SCHEMA, [Barrier.new(1), batch]),
+                          device)
+    projected = [m async for m in inp.execute()][-1]
+    chans = [open_channel() for _ in range(Q17_PARALLELISM)]
+    dispatcher = HashDispatcher(chans, [0, 1], inp.schema, device)
+    aggs = [HashAggExecutor(ChannelSource(ch, inp.schema), [0, 1],
+                            plans.q17_calls(),
+                            table_capacity=Q105_AGG_CAPACITY,
+                            out_capacity=CHUNK, device=device)
+            for ch in chans]
+    with no_host_sync():
+        await dispatcher.dispatch(projected)
+        for ch, agg in zip(chans, aggs):
+            async for _ in agg.map_chunk_batch(await ch.recv()):
+                pass
+    torch.cuda.synchronize()
+
+
+def run_q17_fragmented(device, bids, want: collections.Counter) -> dict:
+    """Phase 22 (b): q17 as a multi-fragment job. Its rows/s at
+    parallelism 1 and 4 on the same batches (each MV gated; phase 22 (a)'s
+    q17 is no stand-in for 1: it ingests chunks under the B3 watch); one
+    epoch of the dispatcher's split and the actors' batched ingest under
+    the sync check; then at parallelism 4 into a SinkExecutor over a jsonl
+    FileSink, every barrier a checkpoint: ``sink.deliver`` fails for the
+    first SINK_DEGRADE_AFTER epochs (the sink degrades, the log takes the
+    changes), ``resume()`` after them, the next epoch drains the log; the
+    job is dropped after that epoch and recovered at parallelism 2 from
+    the store; its last epoch delivered. The file's changelog must fold to
+    numpy's q17 and hold exactly the rows logged."""
+    import shutil
+    import tempfile
+    from risingwave_tpu_torch.common.failpoint import arm, disarm
+    from risingwave_tpu_torch.storage import MemoryStateStore, StateTable
+    from risingwave_tpu_torch.stream import MaterializeExecutor
+    from risingwave_tpu_torch.stream import nexmark_plans as plans
+    batches = q17_batches(bids)
+    result = {}
+    for p in (1, Q17_PARALLELISM):
+        torch.cuda.empty_cache()
+        _, out = q17_job(device, batch_source(batches), p)
+        mv = MaterializeExecutor(out, StateTable(MemoryStateStore(), 1,
+                                                 plans.q17_schema(), [0, 1]))
+        b3_launches(reset=True)
+        secs = asyncio.run(drive_timed(mv))
+        if mv_visible(mv) != want:
+            raise AssertionError(f"q17 at parallelism {p} differs from "
+                                 "numpy's")
+        timed_rows = (len(batches) - 1) * NEX_CHUNKS_PER_EPOCH * CHUNK
+        result[f"p{p}_source_rows_per_s"] = timed_rows / secs
+        result[f"p{p}_b3_launches"] = b3_launches()
+    asyncio.run(dispatch_sync_free_epoch(device, batches[-1]))
+    result["sync_free_dispatch"] = "ok"
+
+    tmp = tempfile.mkdtemp(prefix="q17_sink_")
+    try:
+        path = f"{tmp}/q17.jsonl"
+        store = MemoryStateStore()
+        drop_at = SINK_DEGRADE_AFTER + 2        # epochs 1.. are barriers 2..
+        graph, out = q17_job(device, batch_source(batches[:drop_at - 1]),
+                             Q17_PARALLELISM, store)
+        sink = timed_sink(out, path, store)
+        health = {}
+
+        def degraded():
+            health.update(sink.sink_health())
+            disarm()
+            sink.resume()
+
+        b3_launches(reset=True)
+        try:
+            asyncio.run(drive_sink(sink, store, {
+                1: lambda: arm("sink.deliver", OSError),
+                SINK_DEGRADE_AFTER + 1: degraded}, stop_after=drop_at))
+        finally:
+            disarm()
+        if not health.get("degraded") or health["pending_rows"] <= 0:
+            raise AssertionError(f"the q17 sink did not degrade: {health}")
+        if sink.sink_health()["pending_rows"] != 0:
+            raise AssertionError("resume() left rows in the sink's log")
+        first = sink
+        sink_b3 = b3_launches()
+        t0 = time.perf_counter()
+        graph2, out2 = q17_job(
+            device, batch_source(batches[drop_at - 1:], store.committed_epoch
+                                 + 1), Q17_RECOVERY_PARALLELISM, store)
+        second = timed_sink(out2, path, store, recovering=True)
+        torch.cuda.synchronize()
+        recovery_s = time.perf_counter() - t0
+        loaded = [int(a.core.live_mask(a.state).sum()) for a in graph2.actors]
+        b3_launches(reset=True)
+        asyncio.run(drive_sink(second, store, {}))
+        recovery_b3 = b3_launches()
+        got = replay_changelog(path)
+        with open(path, encoding="utf-8") as f:
+            lines = sum(1 for _ in f)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    delivered = first.rows_delivered + second.rows_delivered
+    logged = first.rows_logged + second.rows_logged
+    if got != want:
+        raise AssertionError(f"the q17 sink's changelog differs from numpy's "
+                             f"q17: {sum((got - want).values())} extra, "
+                             f"{sum((want - got).values())} missing")
+    if not lines == delivered == logged:
+        raise AssertionError(f"q17 sink: {lines} lines, {delivered} rows "
+                             f"delivered, {logged} logged")
+    ms = first.barrier_ms + second.barrier_ms
+    result.update(
+        rows_delivered=delivered, rows_logged=logged, file_lines=lines,
+        degraded_health=health, sink_ms_per_barrier=ms,
+        recovery_s=recovery_s, recovered_groups_per_actor=loaded,
+        sink_b3_launches=sink_b3, recovery_b3_launches=recovery_b3,
+        groups=len(want))
+    return result
+
+
+def run_q20_fragmented(device, auctions, bids, want) -> dict:
+    """Phase 22 (c): q20's join as Q20_PARALLELISM actors (each a HashJoin
+    of a quarter of the 1<<16 keys at bucket width 2048; kernels B1 and
+    B3 in each), both sides hash-dispatched on the auction id; the MV
+    equal to numpy's q20."""
+    from risingwave_tpu_torch.connector import AUCTION_SCHEMA, BID_SCHEMA
+    from risingwave_tpu_torch.frontend.fragments import build_fragmented_join
+    from risingwave_tpu_torch.ops.join_state import JoinType
+    from risingwave_tpu_torch.storage import MemoryStateStore, StateTable
+    from risingwave_tpu_torch.stream import MaterializeExecutor
+    from risingwave_tpu_torch.stream import nexmark_plans as plans
+    rt_mod = importlib.import_module("risingwave_tpu_torch.ops.rank_totals")
+    torch.cuda.empty_cache()
+    b, a = plans.q20_sides(epoch_source(BID_SCHEMA, bids),
+                           epoch_source(AUCTION_SCHEMA, auctions), device)
+    graph = build_fragmented_join(
+        b, a, [0], [0], JoinType.INNER, parallelism=Q20_PARALLELISM,
+        key_capacity=Q105_KEY_CAPACITY // Q20_PARALLELISM,
+        bucket_width=Q105_BUCKET_WIDTH, out_capacity=CHUNK, device=device)
+    for join in graph.actors:
+        join.emit_batch = Q20_EMIT_BATCH
+    mv = MaterializeExecutor(plans.q20_output(graph), StateTable(
+        MemoryStateStore(), 1, plans.q20_schema(), [7, 8]))
+    torch.cuda.reset_peak_memory_stats()
+    b3_launches(reset=True)
+    rt_mod.rank_totals.launches = 0
+    secs = asyncio.run(drive_timed(mv))
+    b1, b3 = rt_mod.rank_totals.launches, b3_launches()
+    for j in graph.actors:
+        if j.core.W != Q105_BUCKET_WIDTH or \
+                j.core.capacity != Q105_KEY_CAPACITY // Q20_PARALLELISM:
+            raise AssertionError("a q20 join actor grew: size it larger")
+    got = mv_visible(mv)
+    if got != want:
+        raise AssertionError(f"fragmented q20 differs from numpy's: "
+                             f"{sum((got - want).values())} extra, "
+                             f"{sum((want - got).values())} missing rows")
+    timed_rows = 2 * (NEX_EPOCHS - 1) * NEX_CHUNKS_PER_EPOCH * CHUNK
+    return {"parallelism": Q20_PARALLELISM, "rows_out": sum(got.values()),
+            "source_rows_per_s": timed_rows / secs, "b1_launches": b1,
+            "b3_launches": b3, "emit_batch": Q20_EMIT_BATCH,
+            "peak_device_bytes": torch.cuda.max_memory_allocated()}
+
+
 @contextlib.contextmanager
 def profiled():
     """A CUDA profiler session around the block; yields the profiler."""
@@ -3593,16 +4275,47 @@ def main() -> int:
     b1_paths["tpch"] = tpch["b1_launches"]
     b3_paths["tpch"] = tpch["b3_launches"]
     print("tpch: " + json.dumps(tpch) + f" [{card}]")
-    if len(b3_inputs) != 11:
+    lap("phase 21")
+
+    # -- phase 22: the rest of the NEXmark suite over the phase-13 chunks,
+    # each MV gated against numpy; q17 as a multi-fragment job (rows/s at
+    # parallelism 1 and 4, the dispatcher's epoch under the sync check,
+    # into a sink that degrades, resumes, is dropped and recovered at
+    # parallelism 2); q20's join as 4 actors
+    torch.cuda.empty_cache()
+    ext_data = ExtData(auctions, nbids)
+    ext = run_nexmark_extended(device, auctions, nbids, ext_data)
+    ext_b1 = ext.pop("b1_input")
+    b3_inputs.update(ext.pop("b3_inputs"))
+    for name, r in ext["queries"].items():
+        if name in EXT_JOINS:
+            b1_paths[name] = r["b1_launches"]
+        if r["b3_launches"] or name in EXT_JOINS or name == "q17":
+            b3_paths[name] = r["b3_launches"]
+        print(f"{name}: " + json.dumps(r) + f" [{card}]")
+    lap("phase 22 (a) queries")
+    q17f = run_q17_fragmented(device, nbids, ext_data.expected("q17"))
+    for key in ("p1_b3_launches", f"p{Q17_PARALLELISM}_b3_launches",
+                "sink_b3_launches", "recovery_b3_launches"):
+        b3_paths[f"q17 fragmented {key[:-12]}"] = q17f[key]
+    print("q17_fragmented: " + json.dumps(q17f) + f" [{card}]")
+    lap("phase 22 (b) q17 fragmented")
+    q20f = run_q20_fragmented(device, auctions, nbids,
+                              ext_data.expected("q20"))
+    b1_paths["q20 fragmented"] = q20f["b1_launches"]
+    b3_paths["q20 fragmented"] = q20f["b3_launches"]
+    print("q20_fragmented: " + json.dumps(q20f) + f" [{card}]")
+    lap("phase 22 (c) q20 fragmented")
+    del ext_data
+    if len(b3_inputs) != 12:
         raise AssertionError(f"kernel B3 inputs kept only at "
                              f"{sorted(b3_inputs)}")
     for path, n in list(b3_paths.items()) + list(b1_paths.items()):
         if n <= 0:
             raise AssertionError(f"the {path} run never launched its "
                                  "kernel")
-    lap("phase 21")
 
-    # -- phase 22: kernel times on the inputs their path gave them: B1 on
+    # -- phase 23: kernel times on the inputs their path gave them: B1 on
     # the q7 run's input with the most keyed rows and the busiest inputs of
     # q105, q5_hop and the TPC-H joins, B2 on the fused q7 run's last
     # flush, B3 on the q5 input of HASH_CASES, the q5 compaction's input
@@ -3675,6 +4388,24 @@ def main() -> int:
     held_to_bound("rank_totals on the TPC-H input", tpch_b1_t["ms"],
                   tpch_b1_t["bound_ms"])
     print("rank_totals tpch input: " + json.dumps(tpch_b1_t))
+    # B1 on the busiest input of the extended queries' joins (q9, q20)
+    ext_input = ext_b1["input"]
+    for kern, plain in zip(rt_mod.rank_totals(*ext_input),
+                           rt_mod.rank_totals_plain(*ext_input)):
+        max_err = max(max_err, int((kern - plain).abs().max()))
+    if max_err:
+        raise AssertionError(f"rank_totals differs from plain on "
+                             f"{ext_b1['query']}'s input")
+    ext_b1_t = dict(zip(("ms", "plain_ms", "call_ms", "plain_call_ms",
+                         "timing"),
+                        kernel_times(rt_mod.rank_totals,
+                                     rt_mod.rank_totals_plain, ext_input)))
+    ext_b1_t.update(query=ext_b1["query"], shape=list(ext_input[1].shape),
+                    keyed_rows=ext_b1["keyed_rows"], calls=ext_b1["calls"],
+                    bound_ms=rank_totals_bound(*ext_input)[0])
+    held_to_bound(f"rank_totals on {ext_b1['query']}'s input",
+                  ext_b1_t["ms"], ext_b1_t["bound_ms"])
+    print("rank_totals nexmark_ext input: " + json.dumps(ext_b1_t))
     # B1 over every input of the q7 run, one call each: its device time on
     # the path, and the bound summed the same way
     path_ms, _, path_timing = time_cuda(
@@ -3708,9 +4439,9 @@ def main() -> int:
     epochs = {"fused q5": FUSED_TIMED_EPOCHS + 1,
               "fused q8": Q8_Q3_TIMED_EPOCHS + 1,
               "fused q3": Q8_Q3_TIMED_EPOCHS + 1}
-    lap("phase 22 kernel times")
+    lap("phase 23 kernel times")
 
-    # -- phase 22, continued: where the time goes (device busy share)
+    # -- phase 23, continued: where the time goes (device busy share)
     head = chunks[:2 * CHUNKS_PER_EPOCH]
     print("q7_trace: " + json.dumps(trace(q7_pipeline, head, device)))
     print("q5_trace: " + json.dumps(trace(q5_pipeline, head, device)))
@@ -3738,7 +4469,7 @@ def main() -> int:
         print(f"{path}_fused_trace: " + json.dumps(summary))
     fq3b.check()
 
-    lap("phase 22 traces")
+    lap("phase 23 traces")
     print("phase_seconds: " + json.dumps(phase_s))
     print(card)
     print(json.dumps({"kernels": [{
@@ -3747,10 +4478,11 @@ def main() -> int:
         "replaces": "risingwave_tpu/ops/pallas_rank.py:85",
         "tpu_counterpart": "risingwave_tpu/ops/pallas_rank.py::_kernel",
         "path": "q7 executor; q7 executor (bench form); q7 recovery; "
-                "q105; q102; q5_hop; tpch",
+                "q105; q102; q5_hop; tpch; q9; q20; q101; q103; q104; "
+                "q106; q20 fragmented",
         "launches": q7_launches, "path_launches": b1_paths,
         "q105_input": q105_b1, "q5_hop_input": q5h_b1_t,
-        "tpch_input": tpch_b1_t,
+        "tpch_input": tpch_b1_t, "nexmark_ext_input": ext_b1_t,
         "equal": max_err == 0, "max_abs_err": max_err, "shape": [n, w],
         "ms": ms, "kernel_ms": ms, "plain_ms": plain_ms,
         "call_ms": call_ms, "plain_call_ms": plain_call_ms,
@@ -3781,7 +4513,10 @@ def main() -> int:
         "path": "q7 and q5 executors, fused q5, q8 and q3, q5 and q7 "
                 "executors in bench form, q5 recovery, q5 compact, q7 "
                 "recovery, q105, q102, q18, q18 recovery, q5_hop, "
-                "eowc_running, eowc recovery, dedup, dedup recovery, tpch",
+                "eowc_running, eowc recovery, dedup, dedup recovery, tpch, "
+                "q9, q17, q20, q101, q103, q104, q106, q17 fragmented "
+                "(parallelism 1 and 4, the sink run, its recovery), q20 "
+                "fragmented",
         "launches": sum(b3_paths.values()), "path_launches": b3_paths,
         "launches_per_epoch": {p: b3_paths[p] / e
                                for p, e in epochs.items()},

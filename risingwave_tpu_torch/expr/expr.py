@@ -9,12 +9,11 @@ the scales of +, -, %, comparisons, CASE and COALESCE, and a product's
 scale is the sum of its operands'. VARCHAR values are dictionary ids:
 equality compares ids, the ordering comparisons compare the ids' ranks,
 casts to or from VARCHAR format or parse each distinct value on the host,
-and the string functions (lower, upper, substr, length, ||, LIKE) run on
-the host: those that give a BOOL or an integer once per dictionary id,
-gathered on the card, and those that give a VARCHAR once per distinct
-value of the chunk.
-The regex, JSONB, array, struct and ``to_char`` functions are not ported
-yet.
+and the string functions (lower, upper, substr, length, ||, LIKE, the
+regexp functions, split_part, to_char) run on the host: those that give a
+BOOL or an integer once per dictionary id, gathered on the card, and those
+that give a VARCHAR once per distinct value of the chunk.
+The JSONB, array and struct functions are not ported yet.
 """
 
 from __future__ import annotations
@@ -150,7 +149,7 @@ def call(name: str, *args: Expr) -> FunctionCall:
         raise KeyError(f"unknown function {name!r}")
     args = _decimal_fixup(name, tuple(args))
     if name in _STR_FNS:
-        for pos in _STR_FNS[name][0]:
+        for pos in _STR_FNS[name][0][:len(args)]:
             if not args[pos].type.is_string:
                 raise TypeError(f"{name} expects varchar, got "
                                 f"{args[pos].type.kind.value}")
@@ -639,8 +638,162 @@ def _like(s, pattern):
     return _like_cached(pattern).match(s) is not None
 
 
+# regexp functions, with PostgreSQL's semantics: flags, ``\1`` replacement
+# templates, replace-first unless 'g', a group that took no part in the
+# match is NULL
+
+@functools.lru_cache(maxsize=256)
+def _compile_re(pattern: str, py_flags: int = 0):
+    return re.compile(pattern, py_flags)
+
+
+def _re_flags(flags: str) -> int:
+    """PostgreSQL's flag letters; 'g' is the caller's (replace all)."""
+    f = 0
+    for ch in flags:
+        if ch == "i":
+            f |= re.IGNORECASE
+        elif ch in ("n", "m"):     # newline-sensitive matching
+            f |= re.MULTILINE
+        elif ch == "s":            # '.' matches a newline
+            f |= re.DOTALL
+        elif ch == "x":
+            f |= re.VERBOSE
+        elif ch in ("c", "g"):     # 'c': case-sensitive, the default
+            pass
+        else:
+            raise ValueError(f"invalid regexp flag: {ch!r}")
+    return f
+
+
+def _pg_replacement_template(r: str) -> str:
+    """A PostgreSQL replacement string as a ``re.sub`` template, scanned
+    left to right: ``\\&`` (the whole match) -> ``\\g<0>``, ``\\1``..``\\9``
+    and ``\\\\`` kept, any other escape the literal character."""
+    out = []
+    i = 0
+    while i < len(r):
+        c = r[i]
+        if c == "\\" and i + 1 < len(r):
+            n = r[i + 1]
+            if n == "&":
+                out.append("\\g<0>")
+            elif n.isdigit() or n == "\\":
+                out.append(c + n)
+            else:
+                out.append(n)
+            i += 2
+        elif c == "\\":                   # a trailing lone backslash
+            out.append("\\\\")
+            i += 1
+        else:
+            out.append(c)
+            i += 1
+    return "".join(out)
+
+
+def _regexp_replace(s, p, r, flags=""):
+    count = 0 if "g" in flags else 1
+    return _compile_re(p, _re_flags(flags)).sub(
+        _pg_replacement_template(r), s, count=count)
+
+
+def _regexp_match(s, p, flags=""):
+    """The first capture group of the first match (the whole match when
+    the pattern has no group): the scalar the reference returns in place
+    of PostgreSQL's text[]."""
+    if "g" in flags:
+        raise ValueError("regexp_match does not support the global option")
+    m = _compile_re(p, _re_flags(flags)).search(s)
+    if m is None:
+        return None
+    return m.group(1) if m.re.groups else m.group(0)
+
+
+def _regexp_match_group(s: str, p: str, n: int):
+    """``(regexp_match(s, p))[n]``: the 1-based group of the first match;
+    NULL with no match, out of range, or a group that took no part. With
+    no capture group, [1] is the whole match."""
+    m = _compile_re(p).search(s)
+    if m is None:
+        return None
+    if m.re.groups == 0:
+        return m.group(0) if n == 1 else None
+    if 1 <= n <= m.re.groups:
+        return m.group(n)
+    return None
+
+
+def _split_part(s: str, delim: str, n: int):
+    """1-based field; a negative one counts from the end; out of range
+    gives ''."""
+    if n == 0:
+        raise ValueError("field position must not be zero")
+    parts = s.split(delim) if delim else [s]
+    i = n - 1 if n > 0 else len(parts) + n
+    return parts[i] if 0 <= i < len(parts) else ""
+
+
+# to_char over timestamps: a PostgreSQL pattern subset, matched
+# case-insensitively, longest first; HH is HH12. Each pattern's unit: the
+# value depends only on the timestamp floored to the finest unit of the
+# format's patterns, so a chunk's timestamps are floored on the card
+# before their distinct values go to the host.
+_TO_CHAR_PATTERNS = [
+    ("YYYY", lambda dt: f"{dt[0]:04d}", USECS_PER_DAY),
+    ("YY", lambda dt: f"{dt[0] % 100:02d}", USECS_PER_DAY),
+    ("MM", lambda dt: f"{dt[1]:02d}", USECS_PER_DAY),
+    ("DD", lambda dt: f"{dt[2]:02d}", USECS_PER_DAY),
+    ("HH24", lambda dt: f"{dt[3]:02d}", USECS_PER_HOUR),
+    ("HH12", lambda dt: f"{(dt[3] % 12) or 12:02d}", USECS_PER_HOUR),
+    ("HH", lambda dt: f"{(dt[3] % 12) or 12:02d}", USECS_PER_HOUR),
+    ("MI", lambda dt: f"{dt[4]:02d}", USECS_PER_MIN),
+    ("SS", lambda dt: f"{dt[5]:02d}", USECS_PER_SEC),
+    ("MS", lambda dt: f"{dt[6] // 1000:03d}", 1000),
+    ("AM", lambda dt: "AM" if dt[3] < 12 else "PM", USECS_PER_HOUR),
+    ("PM", lambda dt: "AM" if dt[3] < 12 else "PM", USECS_PER_HOUR),
+]
+
+
+@functools.lru_cache(maxsize=64)
+def _to_char_compile(fmt: str):
+    """(segments, unit): each segment a literal character or a pattern
+    function; ``unit`` the finest unit the patterns read."""
+    segs: list = []
+    unit = USECS_PER_DAY
+    i = 0
+    up = fmt.upper()
+    while i < len(fmt):
+        for pat, fn, u in _TO_CHAR_PATTERNS:
+            if up.startswith(pat, i):
+                segs.append(fn)
+                unit = min(unit, u)
+                i += len(pat)
+                break
+        else:
+            segs.append(fmt[i])
+            i += 1
+    return segs, unit
+
+
+def _to_char(us: int, fmt: str) -> str:
+    d = _EPOCH + datetime.timedelta(microseconds=us)
+    dt = (d.year, d.month, d.day, d.hour, d.minute, d.second, d.microsecond)
+    return "".join(seg if isinstance(seg, str) else seg(dt)
+                   for seg in _to_char_compile(fmt)[0])
+
+
+def _to_char_floor(args, datas):
+    """to_char's timestamps floored to its format's unit, on the card (a
+    format that is a column is left as it is)."""
+    if not isinstance(args[1], Literal):
+        return datas
+    unit = _to_char_compile(args[1].value)[1]
+    return [_fdiv(datas[0].long(), unit) * unit] + datas[1:]
+
+
 #: name -> (positions of VARCHAR operands, python function of the operands'
-#: python values, result type)
+#: python values, result type). A result of None is SQL NULL.
 _STR_FNS: dict[str, tuple] = {
     "lower": ((0,), str.lower, T.VARCHAR),
     "upper": ((0,), str.upper, T.VARCHAR),
@@ -649,6 +802,15 @@ _STR_FNS: dict[str, tuple] = {
     "concat_op": ((0, 1), lambda a, b: a + b, T.VARCHAR),
     "like": ((0, 1), _like, T.BOOL),
     "not_like": ((0, 1), lambda s, p: not _like(s, p), T.BOOL),
+    "regexp_like": ((0, 1), lambda s, p: _compile_re(p).search(s)
+                    is not None, T.BOOL),
+    "regexp_count": ((0, 1), lambda s, p: len(_compile_re(p).findall(s)),
+                     T.INT64),
+    "regexp_replace": ((0, 1, 2, 3), _regexp_replace, T.VARCHAR),
+    "regexp_match": ((0, 1, 2), _regexp_match, T.VARCHAR),
+    "regexp_match_group": ((0, 1), _regexp_match_group, T.VARCHAR),
+    "split_part": ((0, 1), _split_part, T.VARCHAR),
+    "to_char": ((1,), _to_char, T.VARCHAR),
 }
 for _name, (_, _, _out) in _STR_FNS.items():
     # evaluated by ``_eval_str_fn``, not through an impl
@@ -711,15 +873,29 @@ def _eval_str_fn(e: "FunctionCall", cols) -> Column:
         t = table.on(ids.device, len(GLOBAL_STRING_DICT))
         return Column(t[ids.long().clamp(0, t.shape[0] - 1)], mask)
     # a VARCHAR result, or a second column operand: once per distinct
-    # operand tuple
-    host = np.stack([c.data.cpu().numpy().astype(np.int64) for c in cols], 1)
+    # operand tuple of the rows whose operands are all non-NULL (a NULL
+    # row's sentinel never reaches the function)
+    datas = [c.data for c in cols]
+    if e.name == "to_char":
+        datas = _to_char_floor(e.args, datas)
+    # the operands (0 on a NULL row) and the mask in one copy to the host
+    both = torch.stack([torch.where(mask, d.long(), 0) for d in datas]
+                       + [mask.long()], 1).cpu().numpy()
+    host, valid = both[:, :-1], both[:, -1].astype(bool)
     uniq, inv = np.unique(host, axis=0, return_inverse=True)
-    vals = []
-    for tup in uniq:
+    inv = inv.reshape(-1)
+    wanted = np.zeros(len(uniq), bool)
+    wanted[inv[valid]] = True
+    vals = np.zeros(len(uniq), out_type.np_dtype)
+    known = np.zeros(len(uniq), bool)
+    for u in np.nonzero(wanted)[0]:
         args = [_lookup_str(v) if i in str_pos else int(v)
-                for i, v in enumerate(tup)]
+                for i, v in enumerate(uniq[u])]
         r = fn(*args)
-        vals.append(GLOBAL_STRING_DICT.intern(r) if out_type.is_string
-                    else r)
-    out = np.asarray(vals, out_type.np_dtype)[inv.reshape(-1)]
-    return Column(torch.from_numpy(out).to(cols[0].data.device), mask)
+        if r is not None:
+            vals[u] = (GLOBAL_STRING_DICT.intern(r) if out_type.is_string
+                       else r)
+            known[u] = True
+    dev = cols[0].data.device
+    return Column(torch.from_numpy(vals[inv]).to(dev),
+                  mask & torch.from_numpy(known[inv]).to(dev))

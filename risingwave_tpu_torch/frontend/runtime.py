@@ -15,7 +15,6 @@ Materialize) and an MV over tables is a job of Backfill leaves.
 from __future__ import annotations
 
 import asyncio
-import collections
 import time
 from typing import AsyncIterator, Optional, Sequence
 
@@ -25,38 +24,11 @@ from ..common.types import Schema
 from ..storage.state_store import MemoryStateStore
 from ..storage.state_table import StateTable
 from ..stream.backfill import PROGRESS_SCHEMA, BackfillExecutor
+from ..stream.dispatch import MsgQueue
 from ..stream.dml import DmlManager, TableDmlHandle
 from ..stream.executor import Executor
 from ..stream.materialize import MaterializeExecutor
 from ..stream.message import Barrier, Message
-
-
-class MsgQueue:
-    """Single-consumer unbounded message queue (``put_nowait``/``get``).
-    Its ``get`` awaits a bare future and never touches the loop when an
-    abandoned consumer is finalized late."""
-
-    def __init__(self) -> None:
-        self._items: collections.deque = collections.deque()
-        self._waiter: Optional[asyncio.Future] = None
-
-    def put_nowait(self, item) -> None:
-        self._items.append(item)
-        w = self._waiter
-        if w is not None and not w.done():
-            w.set_result(None)
-
-    async def get(self):
-        while not self._items:
-            self._waiter = asyncio.get_running_loop().create_future()
-            try:
-                await self._waiter
-            finally:
-                self._waiter = None
-        return self._items.popleft()
-
-    def __len__(self) -> int:
-        return len(self._items)
 
 
 class QueueSource(Executor):

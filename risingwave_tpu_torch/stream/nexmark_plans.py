@@ -1,7 +1,8 @@
 """The executor trees of the NEXmark SQL set (q1, q2, q3, q4, q7, q8 as
-tests/test_nexmark_queries.py writes them), q105, q102, q18, q5 over HOP
-windows, an EOWC running window, q13 and a dedup stream, built from this
-package's executors.
+tests/test_nexmark_queries.py writes them), the suite of
+tests/test_nexmark_extended.py (q0, q9, q10, q14-q18, q20-q22, q101-q106),
+q5 over HOP windows, an EOWC running window, q13 and a dedup stream,
+built from this package's executors.
 
 Each tree is the one the reference's planner builds for the query (its
 ``EXPLAIN``), executor for executor:
@@ -59,6 +60,20 @@ Each tree is the one the reference's planner builds for the query (its
   * dedup — bids → AppendOnlyDedup(auction, bidder) → Materialize: the
     first bid of each (auction, bidder) (by hand: no rule of the reference
     planner builds AppendOnlyDedup).
+
+The rest of the suite, each tree read off the reference's ``EXPLAIN``
+the same way (a FILTER clause becomes a CASE-wrapped argument, as the
+reference binder writes it; ``count(DISTINCT)`` puts every call of its
+agg on the host tier, the MaterializedAgg): q0 a pass-through; q10 and
+q22 Projects with ``to_char`` and ``split_part``; q14 Filter → Project
+with a CASE of the hour; q21 Filter and Project over ``lower`` and
+``(regexp_match(url, ...))[2]``; q15 and q16 MaterializedAggs per day (and
+channel); q17 a HashAgg per (auction, day); q9 the auction ⋈ bid join in
+its window → GroupTopN(id; price desc, date_time asc; limit 1) for
+``ROW_NUMBER() <= 1``; q20 bids ⋈ auctions of category 10; q101 auctions
+LEFT JOIN a HashAgg(max); q103 and q104 a semi and a null-aware anti join
+of the auctions with a HAVING HashAgg(count(*)); q106 the windowed join →
+HashAgg(max) → MaterializedAgg(min) (its input retracts).
 
 Sources are executors that yield the connector's chunks (or ChunkBatches);
 ``with_row_id`` appends the hidden ``_row_id`` pk column and numbers it,
@@ -603,3 +618,493 @@ def q8_schema() -> Schema:
                      ("starttime", TIMESTAMP), ("_pk3", TIMESTAMP),
                      ("_pk4", INT64), ("_pk5", TIMESTAMP),
                      ("_pk6", TIMESTAMP))
+
+
+# ---------------------------------------------------------------------------
+# the rest of the NEXmark suite (tests/test_nexmark_extended.py): q0, q9,
+# q10, q14-q17, q20-q22, q101, q103, q104, q106
+# ---------------------------------------------------------------------------
+
+#: q21's channel_id pattern and its known channels
+CHANNEL_ID_PATTERN = "(&|^)channel_id=([^&]*)"
+KNOWN_CHANNELS = (("apple", "0"), ("google", "1"), ("facebook", "2"),
+                  ("baidu", "3"))
+
+
+def _ts(index: int):
+    return col(index, TIMESTAMP)
+
+
+def _str(v) -> Literal:
+    return Literal(v, VARCHAR)
+
+
+def _to_char(ts_col: int, fmt: str):
+    return call("to_char", _ts(ts_col), _str(fmt))
+
+
+def _price_rank(price_col: int, lo: Optional[int], hi: Optional[int]):
+    """``lo <= price < hi`` (either bound open), as the binder writes a
+    FILTER clause's condition."""
+    p = _i64(price_col)
+    parts = []
+    if lo is not None:
+        parts.append(call("greater_than_or_equal", p, _lit(lo)))
+    if hi is not None:
+        parts.append(call("less_than", p, _lit(hi)))
+    return parts[0] if len(parts) == 1 else call("and", *parts)
+
+
+def _filtered(cond, value):
+    """``agg(value) FILTER (WHERE cond)``: the CASE-wrapped argument."""
+    return call("case", cond, value)
+
+
+def q0(bid: Executor, mv_table: StateTable, *,
+       device=DEFAULT_DEVICE) -> Plan:
+    """``SELECT auction, bidder, price, date_time FROM bid``: bids →
+    RowIdGen → Project → Materialize. ``mv_table``: schema ``q0_schema()``,
+    pk (4,)."""
+    return _mv(with_row_id(bid, 0, device), (0, 1, 2, 5, 7),
+               ("auction", "bidder", "price", "date_time", "_pk0"), mv_table)
+
+
+def q9(auction: Executor, bid: Executor, mv_table: StateTable, *,
+       key_capacity: int = 1 << 13, bucket_width: int = 16,
+       topn_capacity: int = 1 << 16, out_capacity: int = 1024,
+       device=DEFAULT_DEVICE) -> Plan:
+    """The winning bid of each auction id: auction ⋈ bid on id = auction →
+    Filter(bid time BETWEEN the auction's date_time and expires) →
+    GroupTopN(id; price desc, date_time asc; limit 1) → Project →
+    Materialize (``ROW_NUMBER() ... <= 1``). ``mv_table``: schema
+    ``q9_schema()``, pk (6, 7)."""
+    a = _project(with_row_id(auction, 0, device), (0, 1, 5, 6, 10),
+                 ("id", "item_name", "date_time", "expires", "_row_id"))
+    b = _project(with_row_id(bid, 0, device), (0, 1, 2, 5, 7),
+                 ("auction", "bidder", "price", "date_time", "_row_id"))
+    join = HashJoinExecutor(a, b, [0], [0], JoinType.INNER,
+                            key_capacity=key_capacity,
+                            bucket_width=bucket_width,
+                            out_capacity=out_capacity, device=device)
+    ts = _ts(8)
+    within = FilterExecutor(join, call(
+        "and", call("greater_than_or_equal", ts, _ts(2)),
+        call("less_than_or_equal", ts, _ts(3))))
+    top = TopNExecutor(within, [OrderSpec(7, desc=True, nulls_last=False),
+                                OrderSpec(8)], 0, 1, pk_indices=[4, 9],
+                       group_by=[0], table_capacity=topn_capacity,
+                       out_capacity=out_capacity, device=device)
+    plan = _mv(top, (0, 1, 5, 6, 7, 8, 4, 9),
+               ("id", "item_name", "auction", "bidder", "price",
+                "bid_date_time", "_pk0", "_pk1"), mv_table)
+    plan.join, plan.top_n = join, top
+    return plan
+
+
+def q10(bid: Executor, mv_table: StateTable, *,
+        device=DEFAULT_DEVICE) -> Plan:
+    """Bids with ``TO_CHAR(date_time, 'YYYY-MM-DD')`` and ``'HH:MI'``:
+    bids → RowIdGen → Project → Materialize. ``mv_table``: schema
+    ``q10_schema()``, pk (6,)."""
+    rows = with_row_id(bid, 0, device)
+    return Plan(MaterializeExecutor(ProjectExecutor(
+        rows, [_i64(0), _i64(1), _i64(2), _ts(5),
+               _to_char(5, "YYYY-MM-DD"), _to_char(5, "HH:MI"),
+               col(7, SERIAL)],
+        ("auction", "bidder", "price", "date_time", "date", "time",
+         "_pk0")), mv_table))
+
+
+def q14(bid: Executor, mv_table: StateTable, *,
+        device=DEFAULT_DEVICE) -> Plan:
+    """``908 * price / 1000`` over 1000, with the bid's time of day: bids →
+    RowIdGen → Project → Filter → Project(the CASE of the hour) →
+    Materialize. ``mv_table``: schema ``q14_schema()``, pk (5,)."""
+    from ..expr.expr import make_extract
+    rows = _project(with_row_id(bid, 0, device), (0, 1, 2, 5, 7),
+                    ("auction", "bidder", "price", "date_time", "_row_id"))
+
+    def price():
+        return call("divide", call("multiply", _lit(908), _i64(2)),
+                    _lit(1000))
+
+    kept = FilterExecutor(rows, call("greater_than", price(), _lit(1000)))
+
+    def hour():
+        return make_extract("hour", _ts(3))
+
+    kind = call(
+        "case",
+        call("and", call("greater_than_or_equal", hour(), _lit(8)),
+             call("less_than_or_equal", hour(), _lit(18))),
+        _str("dayTime"),
+        call("or", call("less_than_or_equal", hour(), _lit(6)),
+             call("greater_than_or_equal", hour(), _lit(20))),
+        _str("nightTime"), _str("otherTime"))
+    return Plan(MaterializeExecutor(ProjectExecutor(
+        kept, [_i64(0), _i64(1), price(), kind, _ts(3), col(4, SERIAL)],
+        ("auction", "bidder", "price", "bidtimetype", "date_time", "_pk0")),
+        mv_table))
+
+
+def q15(bid: Executor, mv_table: StateTable, *,
+        out_capacity: int = 1024, device=DEFAULT_DEVICE) -> Plan:
+    """Bidding statistics per day: bids → RowIdGen → Project(day, the
+    FILTER clauses' CASE-wrapped arguments) → MaterializedAgg (its
+    ``count(DISTINCT)`` calls put every call on the host tier) → Project →
+    Materialize. ``mv_table``: schema ``q15_schema()``, pk (0,)."""
+    rows = with_row_id(bid, 0, device)
+    one = _lit(1)
+    keyed = ProjectExecutor(rows, [
+        _to_char(5, "yyyy-MM-dd"),
+        _filtered(_price_rank(2, None, 10_000), one),
+        _filtered(_price_rank(2, 10_000, 1_000_000), one),
+        _filtered(_price_rank(2, 1_000_000, None), one),
+        _i64(1),
+        _filtered(_price_rank(2, None, 10_000), _i64(1)),
+        _i64(0),
+        _filtered(_price_rank(2, 1_000_000, None), _i64(0))],
+        ("k0", "a0", "a1", "a2", "a3", "a4", "a5", "a6"))
+    calls = [count_star()] + [agg("count", i, INT32) for i in (1, 2, 3)] + [
+        agg("count", i, INT64, distinct=True) for i in (4, 5, 6, 7)]
+    stats = MaterializedAggExecutor(keyed, [0], calls,
+                                    out_capacity=out_capacity, device=device)
+    plan = _mv(stats, range(9), [f.name for f in q15_schema()], mv_table)
+    plan.aggs = (stats,)
+    return plan
+
+
+def q16(bid: Executor, mv_table: StateTable, *,
+        out_capacity: int = 1024, device=DEFAULT_DEVICE) -> Plan:
+    """Channel statistics per day: bids → RowIdGen → Project(channel, day,
+    minute, the FILTER argument, bidder, auction) → MaterializedAgg(max
+    of the minute string, count(*), the filtered count, two
+    ``count(DISTINCT)``) → Project → Materialize. ``mv_table``: schema
+    ``q16_schema()``, pk (0, 1)."""
+    rows = with_row_id(bid, 0, device)
+    keyed = ProjectExecutor(rows, [
+        col(3, VARCHAR), _to_char(5, "YYYY-MM-DD"), _to_char(5, "HH:MI"),
+        _filtered(_price_rank(2, None, 10_000), _lit(1)), _i64(1), _i64(0)],
+        ("k0", "k1", "a0", "a1", "a2", "a3"))
+    calls = [agg("max", 2, VARCHAR), count_star(), agg("count", 3, INT32),
+             agg("count", 4, INT64, distinct=True),
+             agg("count", 5, INT64, distinct=True)]
+    stats = MaterializedAggExecutor(keyed, [0, 1], calls,
+                                    out_capacity=out_capacity, device=device)
+    plan = _mv(stats, range(7), [f.name for f in q16_schema()], mv_table)
+    plan.aggs = (stats,)
+    return plan
+
+
+def q17_input(bid: Executor, device=DEFAULT_DEVICE) -> ProjectExecutor:
+    """q17's agg input: bids → RowIdGen → Project(auction, day, the FILTER
+    argument, price four times)."""
+    rows = with_row_id(bid, 0, device)
+    return ProjectExecutor(rows, [
+        _i64(0), _to_char(5, "YYYY-MM-DD"),
+        _filtered(_price_rank(2, None, 10_000), _lit(1))]
+        + [_i64(2)] * 4, ("k0", "k1", "a0", "a1", "a2", "a3", "a4"))
+
+
+def q17_calls() -> list:
+    """count(*), the filtered count, min, max, avg and sum of the price."""
+    return [count_star(), agg("count", 2, INT32), agg("min", 3, INT64),
+            agg("max", 4, INT64), agg("avg", 5, INT64), agg("sum", 6, INT64)]
+
+
+def q17_output(agg_root: Executor) -> ProjectExecutor:
+    s = agg_root.schema
+    return ProjectExecutor(agg_root, [col(i, s[i].type) for i in range(8)],
+                           [f.name for f in q17_schema()])
+
+
+def q17(bid: Executor, mv_table: StateTable, *,
+        agg_capacity: int = 1 << 16, out_capacity: int = 1024,
+        device=DEFAULT_DEVICE) -> Plan:
+    """Auction statistics per day: ``q17_input`` → HashAgg((auction, day);
+    ``q17_calls``) → Project → Materialize. ``mv_table``: schema
+    ``q17_schema()``, pk (0, 1)."""
+    stats = HashAggExecutor(q17_input(bid, device), [0, 1], q17_calls(),
+                            table_capacity=agg_capacity,
+                            out_capacity=out_capacity, device=device)
+    plan = Plan(MaterializeExecutor(q17_output(stats), mv_table))
+    plan.aggs = (stats,)
+    return plan
+
+
+def q20(bid: Executor, auction: Executor, mv_table: StateTable, *,
+        key_capacity: int = 1 << 13, bucket_width: int = 16,
+        out_capacity: int = 1024, device=DEFAULT_DEVICE) -> Plan:
+    """Bids joined with their auction of category 10: bids → RowIdGen →
+    Project; auctions → RowIdGen → Project → Filter; HashJoin → Project →
+    Materialize. ``mv_table``: schema ``q20_schema()``, pk (7, 8)."""
+    b, a = q20_sides(bid, auction, device)
+    join = HashJoinExecutor(b, a, [0], [0], JoinType.INNER,
+                            key_capacity=key_capacity,
+                            bucket_width=bucket_width,
+                            out_capacity=out_capacity, device=device)
+    plan = Plan(MaterializeExecutor(q20_output(join), mv_table))
+    plan.join = join
+    return plan
+
+
+def q20_sides(bid: Executor, auction: Executor, device=DEFAULT_DEVICE):
+    """q20's two join inputs (bids, auctions of category 10)."""
+    b = _project(with_row_id(bid, 0, device), (0, 1, 2, 3, 7),
+                 ("auction", "bidder", "price", "channel", "_row_id"))
+    a = FilterExecutor(
+        _project(with_row_id(auction, 0, device), (0, 1, 7, 8, 10),
+                 ("id", "item_name", "seller", "category", "_row_id")),
+        call("equal", _i64(3), _lit(10)))
+    return b, a
+
+
+def q20_output(join: Executor) -> ProjectExecutor:
+    s = join.schema
+    return ProjectExecutor(
+        join, [col(i, s[i].type) for i in (0, 1, 2, 3, 6, 7, 8, 4, 9)],
+        [f.name for f in q20_schema()])
+
+
+def q21(bid: Executor, mv_table: StateTable, *,
+        device=DEFAULT_DEVICE) -> Plan:
+    """The channel id of a bid, from its channel or its URL: bids →
+    RowIdGen → Project → Filter → Project(CASE ... ELSE
+    ``(regexp_match(url, ...))[2]``) → Materialize. ``mv_table``: schema
+    ``q21_schema()``, pk (5,)."""
+    rows = _project(with_row_id(bid, 0, device), (0, 1, 2, 3, 4, 7),
+                    ("auction", "bidder", "price", "channel", "url",
+                     "_row_id"))
+
+    def from_url():
+        return call("regexp_match_group", col(4, VARCHAR),
+                    _str(CHANNEL_ID_PATTERN), _lit(2))
+
+    def channel_is(name):
+        return call("equal", call("lower", col(3, VARCHAR)), _str(name))
+
+    known = channel_is(KNOWN_CHANNELS[0][0])
+    for name, _ in KNOWN_CHANNELS[1:]:
+        known = call("or", known, channel_is(name))
+    kept = FilterExecutor(rows, call("or", call("is_not_null", from_url()),
+                                     known))
+    case = []
+    for name, cid in KNOWN_CHANNELS:
+        case += [channel_is(name), _str(cid)]
+    return Plan(MaterializeExecutor(ProjectExecutor(
+        kept, [_i64(0), _i64(1), _i64(2), col(3, VARCHAR),
+               call("case", *case, from_url()), col(5, SERIAL)],
+        ("auction", "bidder", "price", "channel", "channel_id", "_pk0")),
+        mv_table))
+
+
+def q22(bid: Executor, mv_table: StateTable, *,
+        device=DEFAULT_DEVICE) -> Plan:
+    """The URL's first three directories by ``split_part``: bids →
+    RowIdGen → Project → Materialize. ``mv_table``: schema
+    ``q22_schema()``, pk (7,)."""
+    rows = with_row_id(bid, 0, device)
+    dirs = [call("split_part", col(4, VARCHAR), _str("/"), _lit(n))
+            for n in (4, 5, 6)]
+    return Plan(MaterializeExecutor(ProjectExecutor(
+        rows, [_i64(0), _i64(1), _i64(2), col(3, VARCHAR)] + dirs
+        + [col(7, SERIAL)],
+        ("auction", "bidder", "price", "channel", "dir1", "dir2", "dir3",
+         "_pk0")), mv_table))
+
+
+def _auction_items(auction: Executor, device) -> ProjectExecutor:
+    return _project(with_row_id(auction, 0, device), (0, 1, 10),
+                    ("id", "item_name", "_row_id"))
+
+
+def _bid_counts(bid: Executor, agg_capacity: int, out_capacity: int,
+                device) -> HashAggExecutor:
+    """bids → RowIdGen → Project(auction) → HashAgg(count(*))."""
+    auctions = _project(with_row_id(bid, 0, device), (0,), ("k0",))
+    return HashAggExecutor(auctions, [0], [count_star()],
+                           table_capacity=agg_capacity,
+                           out_capacity=out_capacity, device=device)
+
+
+def q101(auction: Executor, bid: Executor, mv_table: StateTable, *,
+         key_capacity: int = 1 << 13, bucket_width: int = 16,
+         agg_capacity: int = 1 << 16, out_capacity: int = 1024,
+         device=DEFAULT_DEVICE) -> Plan:
+    """Each auction with its highest bid: auctions LEFT JOIN (bids →
+    HashAgg(max(price)) per auction) → Project → Materialize.
+    ``mv_table``: schema ``q101_schema()``, pk (3, 4)."""
+    prices = _project(with_row_id(bid, 0, device), (0, 2), ("k0", "a0"))
+    best = HashAggExecutor(prices, [0], [agg("max", 1, INT64)],
+                           table_capacity=agg_capacity,
+                           out_capacity=out_capacity, device=device)
+    right = _project(best, (0, 1), ("auction", "max_price"))
+    join = HashJoinExecutor(_auction_items(auction, device), right, [0], [0],
+                            JoinType.LEFT_OUTER, key_capacity=key_capacity,
+                            bucket_width=bucket_width,
+                            out_capacity=out_capacity, device=device)
+    plan = _mv(join, (0, 1, 4, 2, 3),
+               ("auction_id", "item_name", "max_price", "_pk0", "_pk1"),
+               mv_table)
+    plan.join, plan.aggs = join, (best,)
+    return plan
+
+
+def _semi_anti(auction: Executor, bid: Executor, mv_table: StateTable,
+               cmp: str, anti: bool, key_capacity: int, bucket_width: int,
+               agg_capacity: int, out_capacity: int, device) -> Plan:
+    counts = _bid_counts(bid, agg_capacity, out_capacity, device)
+    having = FilterExecutor(counts, call(cmp, _i64(1), _lit(2)))
+    right = _project(having, (0,), ("auction",))
+    left = _auction_items(auction, device)
+    if anti:
+        left = FilterExecutor(left, call("is_not_null", _i64(0)))
+    join = HashJoinExecutor(
+        left, right, [0], [0],
+        JoinType.LEFT_ANTI if anti else JoinType.LEFT_SEMI,
+        key_capacity=key_capacity, bucket_width=bucket_width,
+        out_capacity=out_capacity, null_aware_anti=anti, device=device)
+    plan = _mv(join, (0, 1, 2), ("auction_id", "item_name", "_pk0"),
+               mv_table)
+    plan.join, plan.aggs = join, (counts,)
+    return plan
+
+
+def q103(auction: Executor, bid: Executor, mv_table: StateTable, *,
+         key_capacity: int = 1 << 13, bucket_width: int = 16,
+         agg_capacity: int = 1 << 16, out_capacity: int = 1024,
+         device=DEFAULT_DEVICE) -> Plan:
+    """Auctions with at least two bids (``IN`` a HAVING subquery): a semi
+    join of the auctions with bids → HashAgg(count(*)) → Filter(>= 2) →
+    Project. ``mv_table``: schema ``q103_schema()``, pk (2,)."""
+    return _semi_anti(auction, bid, mv_table, "greater_than_or_equal",
+                      False, key_capacity, bucket_width, agg_capacity,
+                      out_capacity, device)
+
+
+def q104(auction: Executor, bid: Executor, mv_table: StateTable, *,
+         key_capacity: int = 1 << 13, bucket_width: int = 16,
+         agg_capacity: int = 1 << 16, out_capacity: int = 1024,
+         device=DEFAULT_DEVICE) -> Plan:
+    """Auctions without exactly one bid (``NOT IN`` a HAVING subquery): a
+    null-aware anti join of the auctions (Filter(id IS NOT NULL)) with
+    bids → HashAgg(count(*)) → Filter(< 2) → Project. ``mv_table``: schema
+    ``q103_schema()``, pk (2,)."""
+    return _semi_anti(auction, bid, mv_table, "less_than", True,
+                      key_capacity, bucket_width, agg_capacity,
+                      out_capacity, device)
+
+
+def q106(auction: Executor, bid: Executor, mv_table: StateTable, *,
+         key_capacity: int = 1 << 13, bucket_width: int = 16,
+         agg_capacity: int = 1 << 16, out_capacity: int = 1024,
+         device=DEFAULT_DEVICE) -> Plan:
+    """The lowest final price: auction ⋈ bid → Filter(bid time within the
+    auction) → Project → HashAgg(max(price) per auction) → Project →
+    MaterializedAgg(min; its input retracts) → Project → Materialize.
+    ``mv_table``: schema ``q106_schema()``, no pk (one row)."""
+    a = _project(with_row_id(auction, 0, device), (0, 5, 6, 10),
+                 ("id", "date_time", "expires", "_row_id"))
+    b = _project(with_row_id(bid, 0, device), (0, 2, 5, 7),
+                 ("auction", "price", "date_time", "_row_id"))
+    join = HashJoinExecutor(a, b, [0], [0], JoinType.INNER,
+                            key_capacity=key_capacity,
+                            bucket_width=bucket_width,
+                            out_capacity=out_capacity, device=device)
+    ts = _ts(6)
+    within = FilterExecutor(join, call(
+        "and", call("greater_than_or_equal", ts, _ts(1)),
+        call("less_than_or_equal", ts, _ts(2))))
+    final = HashAggExecutor(_project(within, (0, 5), ("k0", "a0")), [0],
+                            [agg("max", 1, INT64)],
+                            table_capacity=agg_capacity,
+                            out_capacity=out_capacity, device=device)
+    lowest = MaterializedAggExecutor(_project(final, (1,), ("a0",)), [],
+                                     [agg("min", 0, INT64)],
+                                     out_capacity=out_capacity,
+                                     device=device)
+    plan = _mv(lowest, (0,), ("min_final",), mv_table)
+    plan.join, plan.aggs = join, (final, lowest)
+    return plan
+
+
+def q0_schema() -> Schema:
+    return q1_schema()
+
+
+def q9_schema() -> Schema:
+    return Schema.of(("id", INT64), ("item_name", VARCHAR),
+                     ("auction", INT64), ("bidder", INT64), ("price", INT64),
+                     ("bid_date_time", TIMESTAMP), ("_pk0", SERIAL),
+                     ("_pk1", SERIAL))
+
+
+def q10_schema() -> Schema:
+    return Schema.of(("auction", INT64), ("bidder", INT64), ("price", INT64),
+                     ("date_time", TIMESTAMP), ("date", VARCHAR),
+                     ("time", VARCHAR), ("_pk0", SERIAL))
+
+
+def q14_schema() -> Schema:
+    return Schema.of(("auction", INT64), ("bidder", INT64), ("price", INT64),
+                     ("bidtimetype", VARCHAR), ("date_time", TIMESTAMP),
+                     ("_pk0", SERIAL))
+
+
+def q15_schema() -> Schema:
+    return Schema.of(("day", VARCHAR), *((n, INT64) for n in (
+        "total_bids", "rank1_bids", "rank2_bids", "rank3_bids",
+        "total_bidders", "rank1_bidders", "total_auctions",
+        "rank3_auctions")))
+
+
+def q16_schema() -> Schema:
+    return Schema.of(("channel", VARCHAR), ("day", VARCHAR),
+                     ("minute", VARCHAR), ("total_bids", INT64),
+                     ("rank1_bids", INT64), ("total_bidders", INT64),
+                     ("total_auctions", INT64))
+
+
+def q17_schema() -> Schema:
+    from ..common.types import FLOAT64
+    return Schema.of(("auction", INT64), ("day", VARCHAR),
+                     ("total_bids", INT64), ("rank1_bids", INT64),
+                     ("min_price", INT64), ("max_price", INT64),
+                     ("avg_price", FLOAT64), ("sum_price", INT64))
+
+
+def q20_schema() -> Schema:
+    return Schema.of(("auction", INT64), ("bidder", INT64), ("price", INT64),
+                     ("channel", VARCHAR), ("item_name", VARCHAR),
+                     ("seller", INT64), ("category", INT64),
+                     ("_pk0", SERIAL), ("_pk1", SERIAL))
+
+
+def q21_schema() -> Schema:
+    return Schema.of(("auction", INT64), ("bidder", INT64), ("price", INT64),
+                     ("channel", VARCHAR), ("channel_id", VARCHAR),
+                     ("_pk0", SERIAL))
+
+
+def q22_schema() -> Schema:
+    return Schema.of(("auction", INT64), ("bidder", INT64), ("price", INT64),
+                     ("channel", VARCHAR), ("dir1", VARCHAR),
+                     ("dir2", VARCHAR), ("dir3", VARCHAR), ("_pk0", SERIAL))
+
+
+def q101_schema() -> Schema:
+    return Schema.of(("auction_id", INT64), ("item_name", VARCHAR),
+                     ("max_price", INT64), ("_pk0", SERIAL), ("_pk1", INT64))
+
+
+def q103_schema() -> Schema:
+    return Schema.of(("auction_id", INT64), ("item_name", VARCHAR),
+                     ("_pk0", SERIAL))
+
+
+def q104_schema() -> Schema:
+    return q103_schema()
+
+
+def q106_schema() -> Schema:
+    return Schema.of(("min_final", INT64))

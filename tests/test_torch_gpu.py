@@ -863,3 +863,123 @@ def test_backfill_batched_ingest_makes_no_host_sync(cuda):
                                                sch))
     first = sorted(keys)[:50]
     assert kept == sorted(first) and len(kept) == 50
+
+
+def _split_rows(device):
+    """A hash split of a batch of three chunks (update pairs, NULL keys,
+    invisible rows) into 4 outputs: each output's (op, row) per chunk."""
+    from risingwave_tpu_torch.common import (
+        INT32, INT64, Schema, chunk_to_rows, make_chunk, stack_chunks,
+    )
+    from risingwave_tpu_torch.stream.dispatch import hash_split
+    sch = Schema.of(("k", INT64), ("j", INT32))
+    rng = np.random.default_rng(5)
+    chunks = []
+    for _ in range(3):
+        rows = [(None if rng.random() < 0.05 else int(rng.integers(0, 99)),
+                 int(rng.integers(0, 4))) for _ in range(60)]
+        ops = [int(o) for o in rng.choice([0, 1, 2, 3], 60)]
+        chunks.append(make_chunk(sch, rows, ops=ops, capacity=64,
+                                 device=device))
+    batch = stack_chunks(chunks).chunk
+    outs = torch.arange(4, dtype=torch.int32, device=device)
+    if device != "cpu":
+        torch.cuda.synchronize()
+    with cs.no_host_sync(device != "cpu"):
+        new_ops, masks = hash_split(batch.ops, batch.vis,
+                                    list(batch.columns), outs)
+    out = []
+    for o in range(4):
+        for i in range(3):
+            c = chunks[i].replace(ops=new_ops[i], vis=masks[o][i])
+            out.append(chunk_to_rows(c, sch, with_ops=True))
+    return out
+
+
+def test_hash_split_makes_no_host_sync_and_equals_cpu(cuda):
+    """The dispatcher's split of a ChunkBatch on the card, with
+    synchronizing CUDA calls made errors, gives each output the rows and
+    ops the CPU's split gives it."""
+    assert _split_rows("cuda") == _split_rows("cpu")
+
+
+def _q17_fragmented_rows(device):
+    """q17 as 4 HashAgg actors behind a HashDispatcher over (auction, day),
+    over ChunkBatch epochs of the host generator's bids."""
+    from risingwave_tpu_torch.common import stack_chunks
+    from risingwave_tpu_torch.connector import (
+        BID_SCHEMA, NexmarkConfig, NexmarkGenerator,
+    )
+    from risingwave_tpu_torch.frontend.fragments import build_fragmented_agg
+    from risingwave_tpu_torch.storage import MemoryStateStore, StateTable
+    from risingwave_tpu_torch.stream import (
+        Barrier, MaterializeExecutor, MockSource, nexmark_plans as plans,
+    )
+    gen = NexmarkGenerator(NexmarkConfig(chunk_capacity=256), seed=42,
+                           device=device)
+    msgs = [Barrier.new(1)]
+    for e in range(3):
+        msgs += [stack_chunks([gen.next_bid_chunk() for _ in range(4)]),
+                 Barrier.new(e + 2)]
+    inp = plans.q17_input(MockSource(BID_SCHEMA, msgs), device)
+    graph = build_fragmented_agg(inp, [0, 1], plans.q17_calls(),
+                                 parallelism=4, table_capacity=1 << 12,
+                                 out_capacity=256, device=device)
+    store = MemoryStateStore()
+    mv = MaterializeExecutor(plans.q17_output(graph), StateTable(
+        store, 1, plans.q17_schema(), [0, 1]))
+
+    async def run():
+        async for _ in mv.execute():
+            pass
+
+    asyncio.run(run())
+    return sorted(mv.rows())
+
+
+def test_fragmented_q17_on_card_equals_cpu(cuda):
+    got = _q17_fragmented_rows("cuda")
+    assert got == _q17_fragmented_rows("cpu") and len(got) > 0
+
+
+def _string_fns(device):
+    """regexp_*, split_part and to_char over one chunk (NULLs included)."""
+    from risingwave_tpu_torch.common import (
+        INT64, TIMESTAMP, VARCHAR, Schema, make_chunk,
+    )
+    from risingwave_tpu_torch.expr import Literal, call, col
+    sch = Schema.of(("s", VARCHAR), ("t", TIMESTAMP), ("n", INT64))
+    rng = np.random.default_rng(11)
+    words = ["https://x.y/a/b?channel_id=12&id=3", "a/b/c/d/e/f", "",
+             "Apple", "abcabc", "channel_id=77", "x&y"]
+    rows = [(None if rng.random() < 0.1 else str(rng.choice(words)),
+             int(rng.integers(-10**15, 4 * 10**15)),
+             int(rng.choice([-2, -1, 1, 2, 4, 5]))) for _ in range(200)]
+    chunk = make_chunk(sch, rows, capacity=256, device=device)
+    s, t, n = col(0, VARCHAR), col(1, TIMESTAMP), col(2, INT64)
+
+    def lit(v):
+        return Literal(v, VARCHAR)
+
+    exprs = [call("regexp_like", s, lit("[ab]c")),
+             call("regexp_count", s, lit("a")),
+             call("regexp_replace", s, lit("(a)(b)?"), lit("<\\2\\1>"),
+                  lit("g")),
+             call("regexp_match", s, lit("(\\d+)")),
+             call("regexp_match_group", s, lit("(&|^)channel_id=([^&]*)"),
+                  Literal(2, INT64)),
+             call("split_part", s, lit("/"), n),
+             call("to_char", t, lit("YYYY-MM-DD HH24:MI:SS.MS")),
+             call("to_char", t, lit("hh:mi pm"))]
+    out = []
+    for e in exprs:
+        c = e.eval(chunk)
+        mask = c.mask.cpu().numpy()[:200]
+        data = c.data.cpu().numpy()[:200]
+        out.append([e.type.to_python(d) if m else None
+                    for d, m in zip(data, mask)])
+    return out
+
+
+def test_regexp_and_to_char_on_card_equal_cpu(cuda):
+    assert _string_fns("cuda") == _string_fns("cpu")
