@@ -150,12 +150,32 @@ Phases (any failure exits non-zero and prints no result line):
      hold exactly the rows logged (sink ms per barrier, recovery seconds);
      then q20's join as 4 actors (a quarter of the keys each), gated as
      above;
- 23. each kernel and its plain version timed on the inputs its path gave
+ 23. over phase 13's bids (one warm-up and three timed epochs of 16
+     chunks): (a) bids as one ChunkBatch per epoch → Project → HashAgg(GROUP
+     BY auction: count(*), approx_count_distinct(bidder),
+     approx_count_distinct(price); ``HLL_AGG_CAPACITY`` groups) →
+     Materialize, and SimpleAgg(approx_count_distinct(bidder),
+     approx_count_distinct(channel)): every group's 16 registers equal a
+     numpy mirror of the reference's rule bit for bit, every estimate
+     numpy's from them, one more epoch's batched ingest under the sync
+     check (registers gated again); the estimates' median and maximum
+     relative error against the exact distinct counts as records; (b) bids
+     → MaterializedAgg(GROUP BY bidder: array_agg(auction), count(*)) →
+     Project(bidder, array_length, the first element) → Materialize, equal
+     to Python's sorted lists; (c) the bids rendered as JSON lines (auction,
+     who {bidder, channel}, payload {price, channel, url, date_time}),
+     parsed inside the timed window by ``parse_json_lines`` → Project(
+     payload ->> 'channel', CAST(payload ->> 'price' AS BIGINT),
+     (who).bidder) → HashAgg(GROUP BY channel: count(*), sum(price),
+     approx_count_distinct(bidder)) → Materialize, equal to numpy's; each
+     part's source rows/s and B3 launches; B3's busiest input at (a)'s
+     group table kept;
+ 24. each kernel and its plain version timed on the inputs its path gave
      it, as in phase 2 (B1 on q7's, q105's, q5_hop's, the TPC-H joins' and
      q9's or q20's busiest inputs and summed over every input of the q7
      run, with each input's count of keyed rows; B2 on the fused q7 run's
-     last flush; B3 on the q5 compaction's input and on the twelve inputs
-     kept in phases 13-22, each also held against the plain version slot
+     last flush; B3 on the q5 compaction's input and on the thirteen inputs
+     kept in phases 13-23, each also held against the plain version slot
      for slot on both of its paths); then profiled runs (q7 and q5
      executors, two epochs of q105,
      q18, the EOWC running window and q5 over HOP windows, one fused q7,
@@ -163,7 +183,7 @@ Phases (any failure exits non-zero and prints no result line):
      one JSON line of every kernel: launches on its paths' runs (B1's and
      B3's on each path's run), exact agreement, its time and its plain
      version's, and its bound on an H100;
- 24. the last line: ``{"ok": true, "device": {...}}``.
+ 25. the last line: ``{"ok": true, "device": {...}}``.
 
 It imports nothing of JAX and nothing of the JAX package.
 """
@@ -3961,6 +3981,343 @@ def run_q20_fragmented(device, auctions, bids, want) -> dict:
             "peak_device_bytes": torch.cuda.max_memory_allocated()}
 
 
+# ---------------------------------------------------------------------------
+# phase 23: approx_count_distinct's HLL lanes, array_agg and JSON events
+# over phase 13's bids
+# ---------------------------------------------------------------------------
+
+HLL_M = 16
+HLL_AGG_CAPACITY = Q105_AGG_CAPACITY
+_U64 = np.uint64
+
+
+def np_splitmix64(x: np.ndarray) -> np.ndarray:
+    """splitmix64 over uint64, as the reference mixes."""
+    with np.errstate(over="ignore"):
+        x = x + _U64(0x9E3779B97F4A7C15)
+        x = (x ^ (x >> _U64(30))) * _U64(0xBF58476D1CE4E5B9)
+        x = (x ^ (x >> _U64(27))) * _U64(0x94D049BB133111EB)
+        return x ^ (x >> _U64(31))
+
+
+def np_bit_length(w: np.ndarray) -> np.ndarray:
+    """Bits of each uint64, exactly (a binary search over shifts)."""
+    n = np.zeros(w.shape, np.int64)
+    x = w.copy()
+    for s in (32, 16, 8, 4, 2, 1):
+        hi = x >> _U64(s)
+        big = hi != 0
+        n += np.where(big, s, 0)
+        x = np.where(big, hi, x)
+    return n + x.astype(np.int64)
+
+
+def hll_registers(groups: np.ndarray, n_groups: int,
+                  values: np.ndarray) -> np.ndarray:
+    """int64[n_groups, 16]: the reference's HLL rule in numpy — a float
+    hashed as its float64 bits, anything else as its int64 value; register
+    ``h & 15``, rank ``clz64(h >> 4) - 3``, the max per register."""
+    vi = (values.astype(np.float64).view(np.int64)
+          if values.dtype.kind == "f" else values.astype(np.int64))
+    h = np_splitmix64(vi.view(_U64))
+    reg = (h & _U64(HLL_M - 1)).astype(np.int64)
+    rho = 64 - np_bit_length(h >> _U64(4)) - 3
+    regs = np.zeros((n_groups, HLL_M), np.int64)
+    np.maximum.at(regs, (groups, reg), rho)
+    return regs
+
+
+def hll_estimates(regs: np.ndarray) -> np.ndarray:
+    """The reference's estimate from int64[G, 16] registers: the 16 terms
+    summed in register order, half to even."""
+    m = float(HLL_M)
+    s = np.zeros(regs.shape[0])
+    for j in range(HLL_M):
+        s = s + 2.0 ** (-regs[:, j].astype(np.float64))
+    raw = 0.673 * m * m / s
+    zeros = (regs == 0).sum(1)
+    small = m * np.log(m / np.maximum(zeros, 1))
+    est = np.where((raw <= 2.5 * m) & (zeros > 0), small, raw)
+    return np.round(est).astype(np.int64)
+
+
+def agg_registers(agg, call_idx: int) -> dict:
+    """A HashAgg's live groups (single key) -> int64[16] registers of its
+    ``call_idx``-th call, read from the card once."""
+    st, core = agg.state, agg.core
+    ofs = core.call_lane_ofs[call_idx]
+    live = st.table.occupied & (st.lanes[0] > 0)
+    idx = live.nonzero().squeeze(1)
+    keys = st.table.key_data[0][idx].cpu().numpy()
+    regs = torch.stack([st.lanes[ofs + j][idx]
+                        for j in range(HLL_M)], 1).cpu().numpy()
+    return dict(zip(keys.tolist(), regs))
+
+
+def check_registers(label: str, got: dict, keys: np.ndarray,
+                    regs: np.ndarray) -> None:
+    """Every group's registers equal numpy's, bit for bit."""
+    if sorted(got) != keys.tolist():
+        raise AssertionError(f"{label}: the groups differ from numpy's")
+    pos = {k: i for i, k in enumerate(keys.tolist())}
+    bad = sum(not np.array_equal(r, regs[pos[k]]) for k, r in got.items())
+    if bad:
+        raise AssertionError(f"{label}: {bad} groups' registers differ "
+                             f"from numpy's")
+
+
+def relative_errors(est: np.ndarray, exact: np.ndarray) -> dict:
+    rel = np.abs(est - exact) / exact
+    return {"median": float(np.median(rel)), "max": float(rel.max())}
+
+
+def hll_plans(device, bids):
+    """Phase 23 (a)'s trees over one ChunkBatch of bids per epoch: Project
+    → HashAgg(GROUP BY auction: count(*), approx_count_distinct(bidder),
+    approx_count_distinct(price)) → Materialize; and SimpleAgg(
+    approx_count_distinct(bidder), approx_count_distinct(channel))."""
+    from risingwave_tpu_torch.common import INT64, VARCHAR
+    from risingwave_tpu_torch.expr import agg, col, count_star
+    from risingwave_tpu_torch.storage import MemoryStateStore, StateTable
+    from risingwave_tpu_torch.stream import (
+        HashAggExecutor, MaterializeExecutor, ProjectExecutor,
+        SimpleAggExecutor,
+    )
+    batches = q17_batches(bids)
+    proj = ProjectExecutor(batch_source(batches),
+                           [col(0, INT64), col(1, INT64), col(2, INT64),
+                            col(3, VARCHAR)],
+                           names=["auction", "bidder", "price", "channel"])
+    stats = HashAggExecutor(
+        proj, [0], [count_star(), agg("approx_count_distinct", 1, INT64),
+                    agg("approx_count_distinct", 2, INT64)],
+        table_capacity=HLL_AGG_CAPACITY, out_capacity=CHUNK, device=device)
+    mv = MaterializeExecutor(stats, StateTable(MemoryStateStore(), 1,
+                                               stats.schema, [0]))
+    total = SimpleAggExecutor(
+        batch_source(batches), [agg("approx_count_distinct", 1, INT64),
+                                agg("approx_count_distinct", 3, VARCHAR)],
+        device=device)
+    return stats, mv, total
+
+
+def run_hll(device, bids, extra) -> dict:
+    """Phase 23 (a): HLL per auction and overall (the "uv" counts of
+    NEXmark q15, approximate), one warm-up and three timed epochs. Every
+    group's registers equal numpy's mirror of the reference's rule, the
+    MV's estimates numpy's from them; then ``extra`` (one more epoch) goes
+    through the HashAgg's batched ingest under the sync check and the
+    registers are gated again. The relative errors against the exact
+    distinct counts are records. Kernel B3's busiest input at the group
+    table is kept."""
+    from risingwave_tpu_torch.common import stack_chunks
+    stats, mv, total = hll_plans(device, bids)
+    with captured_probe_inputs({
+            "hll HashAgg groups": "risingwave_tpu_torch.ops.grouped_agg",
+    }) as b3_inputs:
+        b3_launches(reset=True)
+        secs = asyncio.run(drive_timed(mv))
+        b3 = b3_launches()
+    secs_total = asyncio.run(drive_timed(total))
+    auction, bidder, price, channel = host_cols(bids, (0, 1, 2, 3))
+    keys, inv = np.unique(auction, return_inverse=True)
+    inv = inv.reshape(-1)
+    regs_b = hll_registers(inv, len(keys), bidder)
+    regs_p = hll_registers(inv, len(keys), price)
+    check_registers("hll bidder", agg_registers(stats, 1), keys, regs_b)
+    check_registers("hll price", agg_registers(stats, 2), keys, regs_p)
+    want = set(zip(keys.tolist(), np.bincount(inv).tolist(),
+                   hll_estimates(regs_b).tolist(),
+                   hll_estimates(regs_p).tolist()))
+    got = set(mv.rows())
+    if got != want:
+        raise AssertionError(f"hll MV differs from numpy's estimates: "
+                             f"{len(got - want)} rows differ")
+    zero = np.zeros(len(bidder), np.int64)
+    overall = [hll_registers(zero, 1, v) for v in (bidder, channel)]
+    lanes = total.state.lanes
+    for i, regs in enumerate(overall):
+        ofs = total.lanes_def.call_lane_ofs[i]
+        mine = torch.stack(lanes[ofs:ofs + HLL_M]).cpu().numpy()
+        if not np.array_equal(mine, regs[0]):
+            raise AssertionError("SimpleAgg registers differ from numpy's")
+    outs = [int(d) for d, _ in total.lanes_def.outputs(lanes)]
+    if outs != [int(hll_estimates(r)[0]) for r in overall]:
+        raise AssertionError("SimpleAgg estimates differ from numpy's")
+    exact_b = distinct_counts(inv, bidder, len(keys))
+    exact_p = distinct_counts(inv, price, len(keys))
+    errors = {"bidder": relative_errors(hll_estimates(regs_b), exact_b),
+              "price": relative_errors(hll_estimates(regs_p), exact_p),
+              "overall_bidder": relative_errors(
+                  np.array(outs[:1]), np.array([len(np.unique(bidder))])),
+              "overall_channel": relative_errors(
+                  np.array(outs[1:]), np.array([len(np.unique(channel))]))}
+    # one more epoch's batched ingest with synchronizing calls made errors
+    asyncio.run(sync_free_batch(stats, stack_chunks(extra)))
+    x_auction, x_bidder = host_cols(extra, (0, 1))
+    all_auction = np.concatenate([auction, x_auction])
+    keys2, inv2 = np.unique(all_auction, return_inverse=True)
+    check_registers("hll bidder after the sync-free epoch",
+                    agg_registers(stats, 1), keys2,
+                    hll_registers(inv2.reshape(-1), len(keys2),
+                                  np.concatenate([bidder, x_bidder])))
+    timed_rows = (NEX_EPOCHS - 1) * NEX_CHUNKS_PER_EPOCH * CHUNK
+    return {"groups": len(keys), "source_rows_per_s": timed_rows / secs,
+            "simple_agg_source_rows_per_s": timed_rows / secs_total,
+            "estimates": outs, "relative_error": errors,
+            "lanes": len(stats.core.lane_dtypes), "b3_launches": b3,
+            "sync_free_batch": "ok", "b3_inputs": b3_inputs}
+
+
+def distinct_counts(inv: np.ndarray, values: np.ndarray,
+                    n_groups: int) -> np.ndarray:
+    """The exact count of distinct values in each group."""
+    pairs = np.unique(np.stack([inv, values.astype(np.int64)], 1), axis=0)
+    return np.bincount(pairs[:, 0], minlength=n_groups)
+
+
+
+def run_array_agg(device, bids) -> dict:
+    """Phase 23 (b): bids → MaterializedAgg(GROUP BY bidder:
+    array_agg(auction), count(*)) → Project(bidder, array_length(vs),
+    vs[1]) → Materialize, one warm-up and three timed epochs; the MV and
+    the agg's arrays equal Python's sorted lists per bidder."""
+    from risingwave_tpu_torch.common import GLOBAL_LIST_DICT, INT64
+    from risingwave_tpu_torch.connector import BID_SCHEMA
+    from risingwave_tpu_torch.expr import Literal, agg, call, col, count_star
+    from risingwave_tpu_torch.storage import MemoryStateStore, StateTable
+    from risingwave_tpu_torch.stream import (
+        MaterializeExecutor, MaterializedAggExecutor, ProjectExecutor,
+    )
+    arrays = MaterializedAggExecutor(
+        epoch_source(BID_SCHEMA, bids), [1],
+        [agg("array_agg", 0, INT64), count_star()], out_capacity=CHUNK,
+        device=device)
+    vs = col(1, arrays.schema[1].type)
+    proj = ProjectExecutor(arrays, [col(0, INT64), call("array_length", vs),
+                                    call("array_access", vs,
+                                         Literal(1, INT64))],
+                           names=["bidder", "n", "first"])
+    mv = MaterializeExecutor(proj, StateTable(MemoryStateStore(), 1,
+                                              proj.schema, [0]))
+    b3_launches(reset=True)
+    secs = asyncio.run(drive_timed(mv))
+    b3 = b3_launches()
+    auction, bidder = host_cols(bids, (0, 1))
+    lists: dict = collections.defaultdict(list)
+    for a, b in zip(auction.tolist(), bidder.tolist()):
+        lists[b].append(a)
+    want = {b: sorted(v) for b, v in lists.items()}
+    got = {r[0]: r for r in mv.rows()}
+    if got != {b: (b, len(v), v[0]) for b, v in want.items()}:
+        raise AssertionError("array_agg MV differs from Python's sorted "
+                             "lists")
+    held = {k[0]: list(GLOBAL_LIST_DICT.lookup(row[1]))
+            for k, row in arrays._out.items()}
+    if held != want:
+        raise AssertionError("array_agg arrays differ from Python's sorted "
+                             "lists")
+    timed_rows = (NEX_EPOCHS - 1) * NEX_CHUNKS_PER_EPOCH * CHUNK
+    return {"groups": len(want), "source_rows_per_s": timed_rows / secs,
+            "longest_array": max(len(v) for v in want.values()),
+            "b3_launches": b3}
+
+
+def json_events(bids) -> list:
+    """The bids as JSON lines, one object per bid, in chunks of CHUNK
+    lines: auction, who {bidder, channel}, payload {price, channel, url,
+    date_time}."""
+    auction, bidder, price, ch, url, ts = host_cols(bids,
+                                                   (0, 1, 2, 3, 4, 5))
+    channel, url = decode(ch), decode(url)
+    lines = [json.dumps({"auction": a, "who": {"bidder": b, "channel": c},
+                         "payload": {"price": p, "channel": c, "url": u,
+                                     "date_time": t}})
+             for a, b, p, c, u, t in zip(auction.tolist(), bidder.tolist(),
+                                         price.tolist(), channel, url,
+                                         ts.tolist())]
+    return [lines[i:i + CHUNK] for i in range(0, len(lines), CHUNK)]
+
+
+class JsonLineSource:
+    """A message-bus source of JSON lines: a barrier, then per epoch
+    NEX_CHUNKS_PER_EPOCH chunks, each parsed by ``parse_json_lines`` and
+    put on the card when it is reached, and a barrier."""
+
+    def __init__(self, schema, chunks_of_lines, device):
+        self.schema = schema
+        self.chunks, self.device = chunks_of_lines, device
+
+    async def execute(self):
+        from risingwave_tpu_torch.common import make_chunk
+        from risingwave_tpu_torch.connector.parsers import parse_json_lines
+        from risingwave_tpu_torch.stream import Barrier
+        yield Barrier.new(1)
+        for i, lines in enumerate(self.chunks):
+            rows = parse_json_lines("\n".join(lines), self.schema)
+            yield make_chunk(self.schema, rows, capacity=CHUNK,
+                             device=self.device)
+            if (i + 1) % NEX_CHUNKS_PER_EPOCH == 0:
+                yield Barrier.new(2 + i // NEX_CHUNKS_PER_EPOCH)
+
+
+def run_json_events(device, bids) -> dict:
+    """Phase 23 (c): the bids as JSON lines from a message bus, parsed
+    inside the timed window under (auction BIGINT, who STRUCT<bidder
+    BIGINT, channel VARCHAR>, payload JSONB) → Project(payload ->>
+    'channel', CAST(payload ->> 'price' AS BIGINT), (who).bidder) →
+    HashAgg(GROUP BY channel: count(*), sum(price),
+    approx_count_distinct(bidder)) → Materialize, equal to numpy's."""
+    from risingwave_tpu_torch.common import (
+        INT64, JSONB, VARCHAR, Schema, struct_of,
+    )
+    from risingwave_tpu_torch.expr import (
+        Cast, Literal, agg, call, col, count_star,
+    )
+    from risingwave_tpu_torch.expr.expr import struct_field
+    from risingwave_tpu_torch.storage import MemoryStateStore, StateTable
+    from risingwave_tpu_torch.stream import (
+        HashAggExecutor, MaterializeExecutor, ProjectExecutor,
+    )
+    who = struct_of(("bidder", INT64), ("channel", VARCHAR))
+    schema = Schema.of(("auction", INT64), ("who", who),
+                       ("payload", JSONB))
+    chunks = json_events(bids)
+    payload = col(2, JSONB)
+
+    def text(key):
+        return call("jsonb_get_field_text", payload, Literal(key, VARCHAR))
+
+    proj = ProjectExecutor(
+        JsonLineSource(schema, chunks, device),
+        [text("channel"), Cast(text("price"), INT64),
+         struct_field(col(1, who), "bidder")],
+        names=["channel", "price", "bidder"])
+    stats = HashAggExecutor(
+        proj, [0], [count_star(), agg("sum", 1, INT64),
+                    agg("approx_count_distinct", 2, INT64)],
+        table_capacity=1 << 10, out_capacity=CHUNK, device=device)
+    mv = MaterializeExecutor(stats, StateTable(MemoryStateStore(), 1,
+                                               stats.schema, [0]))
+    b3_launches(reset=True)
+    secs = asyncio.run(drive_timed(mv))
+    b3 = b3_launches()
+    bidder, price, ch = host_cols(bids, (1, 2, 3))
+    keys, inv = np.unique(decode(ch).astype(str), return_inverse=True)
+    inv = inv.reshape(-1)
+    est = hll_estimates(hll_registers(inv, len(keys), bidder))
+    sums = np.zeros(len(keys), np.int64)
+    np.add.at(sums, inv, price)
+    want = set(zip(keys.tolist(), np.bincount(inv).tolist(), sums.tolist(),
+                   est.tolist()))
+    if set(mv.rows()) != want:
+        raise AssertionError("JSON events MV differs from numpy's")
+    timed_rows = (NEX_EPOCHS - 1) * NEX_CHUNKS_PER_EPOCH * CHUNK
+    return {"groups": len(keys), "source_rows_per_s": timed_rows / secs,
+            "json_bytes": sum(len(ln) + 1 for c in chunks for ln in c),
+            "b3_launches": b3}
+
+
 @contextlib.contextmanager
 def profiled():
     """A CUDA profiler session around the block; yields the profiler."""
@@ -4307,7 +4664,30 @@ def main() -> int:
     print("q20_fragmented: " + json.dumps(q20f) + f" [{card}]")
     lap("phase 22 (c) q20 fragmented")
     del ext_data
-    if len(b3_inputs) != 12:
+
+    # -- phase 23: approx_count_distinct's HLL lanes per auction and
+    # overall (one more epoch under the sync check), array_agg per bidder,
+    # and the bids as JSON events parsed inside the timed window
+    torch.cuda.empty_cache()
+    from risingwave_tpu_torch.connector import NexmarkConfig, NexmarkGenerator
+    extra, _ = nexmark_chunks("bid", NEX_CHUNKS_PER_EPOCH, device,
+                              NexmarkGenerator(NexmarkConfig(
+                                  chunk_capacity=CHUNK), seed=SEED + 1,
+                                  device=device))
+    hll = run_hll(device, nbids, extra)
+    del extra
+    b3_inputs.update(hll.pop("b3_inputs"))
+    b3_paths["hll"] = hll["b3_launches"]
+    print("hll: " + json.dumps(hll) + f" [{card}]")
+    lap("phase 23 (a) hll")
+    arrays = run_array_agg(device, nbids)
+    print("array_agg: " + json.dumps(arrays) + f" [{card}]")
+    lap("phase 23 (b) array_agg")
+    events = run_json_events(device, nbids)
+    b3_paths["json events"] = events["b3_launches"]
+    print("json_events: " + json.dumps(events) + f" [{card}]")
+    lap("phase 23 (c) json events")
+    if len(b3_inputs) != 13:
         raise AssertionError(f"kernel B3 inputs kept only at "
                              f"{sorted(b3_inputs)}")
     for path, n in list(b3_paths.items()) + list(b1_paths.items()):
@@ -4315,12 +4695,12 @@ def main() -> int:
             raise AssertionError(f"the {path} run never launched its "
                                  "kernel")
 
-    # -- phase 23: kernel times on the inputs their path gave them: B1 on
+    # -- phase 24: kernel times on the inputs their path gave them: B1 on
     # the q7 run's input with the most keyed rows and the busiest inputs of
     # q105, q5_hop and the TPC-H joins, B2 on the fused q7 run's last
     # flush, B3 on the q5 input of HASH_CASES, the q5 compaction's input
     # and the busiest input of each row set, group table and join key
-    # table of phases 13-21. They come before
+    # table of phases 13-23. They come before
     # the traces: after a trace of ~140,000 device ops later profiler
     # sessions came back short of kernels.
     ident, matches = max(captured, key=lambda im: int((im[0] >= 0).sum()))
@@ -4439,9 +4819,9 @@ def main() -> int:
     epochs = {"fused q5": FUSED_TIMED_EPOCHS + 1,
               "fused q8": Q8_Q3_TIMED_EPOCHS + 1,
               "fused q3": Q8_Q3_TIMED_EPOCHS + 1}
-    lap("phase 23 kernel times")
+    lap("phase 24 kernel times")
 
-    # -- phase 23, continued: where the time goes (device busy share)
+    # -- phase 24, continued: where the time goes (device busy share)
     head = chunks[:2 * CHUNKS_PER_EPOCH]
     print("q7_trace: " + json.dumps(trace(q7_pipeline, head, device)))
     print("q5_trace: " + json.dumps(trace(q5_pipeline, head, device)))
@@ -4469,7 +4849,7 @@ def main() -> int:
         print(f"{path}_fused_trace: " + json.dumps(summary))
     fq3b.check()
 
-    lap("phase 23 traces")
+    lap("phase 24 traces")
     print("phase_seconds: " + json.dumps(phase_s))
     print(card)
     print(json.dumps({"kernels": [{
@@ -4516,7 +4896,7 @@ def main() -> int:
                 "eowc_running, eowc recovery, dedup, dedup recovery, tpch, "
                 "q9, q17, q20, q101, q103, q104, q106, q17 fragmented "
                 "(parallelism 1 and 4, the sink run, its recovery), q20 "
-                "fragmented",
+                "fragmented, hll, json events",
         "launches": sum(b3_paths.values()), "path_launches": b3_paths,
         "launches_per_epoch": {p: b3_paths[p] / e
                                for p, e in epochs.items()},

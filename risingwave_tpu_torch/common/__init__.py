@@ -1,7 +1,8 @@
 from .types import (  # noqa: F401
-    BOOL, DATE, FLOAT32, FLOAT64, GLOBAL_LIST_DICT, GLOBAL_STRING_DICT,
-    INT16, INT32, INT64, INTERVAL, SERIAL, TIME, TIMESTAMP, VARCHAR, DataType,
-    Field, ListDict, Schema, StringDict, TypeKind, decimal,
+    BOOL, BYTEA, DATE, FLOAT32, FLOAT64, GLOBAL_LIST_DICT, GLOBAL_STRING_DICT,
+    INT16, INT32, INT64, INTERVAL, JSONB, SERIAL, TIME, TIMESTAMP, VARCHAR,
+    DataType, Field, ListDict, Schema, StringDict, TypeKind, decimal,
+    list_of, struct_of,
 )
 from .chunk import (  # noqa: F401
     DEFAULT_CHUNK_CAPACITY, OP_DELETE, OP_INSERT, OP_UPDATE_DELETE,

@@ -1,11 +1,12 @@
 """Logical type system for the data plane.
 
 Counterpart of ``risingwave_tpu/common/types.py``: every logical type lowers
-to a fixed-width tensor dtype. This package carries the scalar types
-(DECIMAL a scaled int64, DATE int32 days; LIST, STRUCT, JSONB and BYTEA
-are not ported yet). VARCHAR is dictionary-encoded at the ingest
-boundary: the device sees int32 ids into the host's process-wide
-``GLOBAL_STRING_DICT``, which ``to_physical`` interns into and
+to a fixed-width tensor dtype (DECIMAL a scaled int64, DATE int32 days).
+The varlen types are dictionary-encoded at the ingest boundary, so the
+device sees int32 ids: VARCHAR, BYTEA and JSONB (canonical JSON text)
+into the host's process-wide ``GLOBAL_STRING_DICT``, LIST and STRUCT
+values (python tuples: a list's elements, a struct's fields in declared
+order) into ``GLOBAL_LIST_DICT``. ``to_physical`` interns and
 ``to_python`` looks up. Ids are insertion-ordered, so every ordering on
 VARCHAR goes through the dictionary's rank table (``StringDict.ranks`` /
 ``device_ranks``).
@@ -16,6 +17,7 @@ from __future__ import annotations
 import dataclasses
 import enum
 import heapq
+import json
 import threading
 from typing import Any, Optional
 
@@ -36,7 +38,11 @@ class TypeKind(enum.Enum):
     TIMESTAMP = "timestamp"    # int64 microseconds since epoch
     INTERVAL = "interval"      # int64 microseconds (no month component)
     VARCHAR = "varchar"        # int32 dictionary id
+    BYTEA = "bytea"            # int32 dictionary id
     SERIAL = "serial"          # int64 row id (shard-prefixed)
+    LIST = "list"              # int32 list-dictionary id (value-interned)
+    JSONB = "jsonb"            # int32 dictionary id (canonical JSON text)
+    STRUCT = "struct"          # int32 list-dictionary id (field tuple)
 
 
 _PHYSICAL: dict[TypeKind, torch.dtype] = {
@@ -52,7 +58,11 @@ _PHYSICAL: dict[TypeKind, torch.dtype] = {
     TypeKind.TIMESTAMP: torch.int64,
     TypeKind.INTERVAL: torch.int64,
     TypeKind.VARCHAR: torch.int32,
+    TypeKind.BYTEA: torch.int32,
     TypeKind.SERIAL: torch.int64,
+    TypeKind.LIST: torch.int32,
+    TypeKind.JSONB: torch.int32,
+    TypeKind.STRUCT: torch.int32,
 }
 
 _NP_OF_TORCH = {torch.bool: np.bool_, torch.int16: np.int16,
@@ -220,10 +230,16 @@ GLOBAL_LIST_DICT = ListDict()
 @dataclasses.dataclass(frozen=True)
 class DataType:
     """A logical column type. ``scale`` is meaningful for DECIMAL only: the
-    value is the int64 ``round(v * 10**scale)``."""
+    value is the int64 ``round(v * 10**scale)``. ``elem_kind`` only for
+    LIST (the element type's kind); ``struct_fields`` only for STRUCT:
+    ((name, DataType), ...), full field types, so a DECIMAL field keeps
+    its scale and nested composites survive persistence and field
+    access."""
 
     kind: TypeKind
     scale: int = 0
+    elem_kind: Optional[TypeKind] = None
+    struct_fields: Optional[tuple] = None
 
     @property
     def dtype(self) -> torch.dtype:
@@ -243,7 +259,34 @@ class DataType:
 
     @property
     def is_string(self) -> bool:
-        return self.kind == TypeKind.VARCHAR
+        """Dictionary-encoded text: VARCHAR, BYTEA and JSONB (canonical
+        JSON text) ride every string path (interning, persistence by
+        content, the host functions)."""
+        return self.kind in (TypeKind.VARCHAR, TypeKind.BYTEA,
+                             TypeKind.JSONB)
+
+    @property
+    def is_list(self) -> bool:
+        return self.kind == TypeKind.LIST
+
+    @property
+    def is_struct(self) -> bool:
+        return self.kind == TypeKind.STRUCT
+
+    @property
+    def elem_type(self) -> "DataType":
+        assert self.kind == TypeKind.LIST and self.elem_kind is not None
+        return DataType(self.elem_kind)
+
+    def field_type(self, name: str) -> "DataType":
+        return self.struct_fields[self.field_index(name)][1]
+
+    def field_index(self, name: str) -> int:
+        assert self.kind == TypeKind.STRUCT and self.struct_fields
+        for i, (fname, _) in enumerate(self.struct_fields):
+            if fname == name:
+                return i
+        raise KeyError(f"struct has no field {name!r}")
 
     def to_physical(self, v: Any) -> Any:
         """Python value → physical scalar for device buffers."""
@@ -252,6 +295,15 @@ class DataType:
         if self.kind == TypeKind.DECIMAL:
             # as the reference writes it: through a float64 product
             return int(round(float(v) * 10**self.scale))
+        if self.is_struct:
+            n = len(tuple(v))
+            if n != len(self.struct_fields or ()):
+                raise ValueError(
+                    f"struct value has {n} fields; type declares "
+                    f"{len(self.struct_fields or ())}")
+            return GLOBAL_LIST_DICT.intern(v)
+        if self.is_list:
+            return GLOBAL_LIST_DICT.intern(v)
         if self.is_string:
             return GLOBAL_STRING_DICT.intern(
                 v if isinstance(v, str) else v.decode())
@@ -265,6 +317,8 @@ class DataType:
         """Physical scalar → Python value (result rows / tests)."""
         if self.kind == TypeKind.DECIMAL:
             return int(v) / 10**self.scale if self.scale else int(v)
+        if self.is_list or self.is_struct:
+            return GLOBAL_LIST_DICT.lookup(int(v))
         if self.is_string:
             return GLOBAL_STRING_DICT.lookup(int(v))
         if self.kind == TypeKind.BOOL:
@@ -294,11 +348,31 @@ TIME = DataType(TypeKind.TIME)
 TIMESTAMP = DataType(TypeKind.TIMESTAMP)
 INTERVAL = DataType(TypeKind.INTERVAL)
 VARCHAR = DataType(TypeKind.VARCHAR)
+BYTEA = DataType(TypeKind.BYTEA)
 SERIAL = DataType(TypeKind.SERIAL)
+JSONB = DataType(TypeKind.JSONB)
 
 
 def decimal(scale: int = 2) -> DataType:
     return DataType(TypeKind.DECIMAL, scale=scale)
+
+
+def canonical_json(v: Any) -> str:
+    """A JSON value's JSONB text: sorted keys, no spaces, so equal JSON
+    values intern to one id."""
+    return json.dumps(v, separators=(",", ":"), sort_keys=True)
+
+
+def list_of(elem: DataType) -> DataType:
+    return DataType(TypeKind.LIST, elem_kind=elem.kind)
+
+
+def struct_of(*fields) -> DataType:
+    """``struct_of(("a", INT64), ("b", VARCHAR))``: full field DataTypes
+    (a bare TypeKind is wrapped)."""
+    return DataType(TypeKind.STRUCT, struct_fields=tuple(
+        (n, t if isinstance(t, DataType) else DataType(t))
+        for n, t in fields))
 
 
 @dataclasses.dataclass(frozen=True)

@@ -9,11 +9,16 @@ the scales of +, -, %, comparisons, CASE and COALESCE, and a product's
 scale is the sum of its operands'. VARCHAR values are dictionary ids:
 equality compares ids, the ordering comparisons compare the ids' ranks,
 casts to or from VARCHAR format or parse each distinct value on the host,
-and the string functions (lower, upper, substr, length, ||, LIKE, the
-regexp functions, split_part, to_char) run on the host: those that give a
-BOOL or an integer once per dictionary id, gathered on the card, and those
-that give a VARCHAR once per distinct value of the chunk.
-The JSONB, array and struct functions are not ported yet.
+and the string functions (lower, upper, trim, substr, length, ||, LIKE,
+the regexp functions, split_part, to_char) run on the host, as do the
+functions over LIST, STRUCT and JSONB values (array_access, array_length,
+struct_field and the jsonb_* accessors, JSON parsed once per distinct
+text): length, LIKE, regexp_like and regexp_count with literal operands
+once per dictionary id, gathered on the card; the others once per
+distinct operand tuple of the chunk, their results (VARCHAR and JSONB
+interned) gathered back on the card. round, floor and ceil run on the
+card; over DECIMAL they give PostgreSQL's results at the argument's
+scale (the reference returns the argument, ROADMAP C3).
 """
 
 from __future__ import annotations
@@ -21,6 +26,7 @@ from __future__ import annotations
 import dataclasses
 import datetime
 import functools
+import json
 import re
 from typing import Any, Callable, Sequence
 
@@ -29,7 +35,9 @@ import torch
 
 from ..common import types as T
 from ..common.chunk import Column, StreamChunk
-from ..common.types import GLOBAL_STRING_DICT, DataType, TypeKind, rank_of
+from ..common.types import (
+    GLOBAL_LIST_DICT, GLOBAL_STRING_DICT, DataType, TypeKind, rank_of,
+)
 
 
 class Expr:
@@ -91,8 +99,8 @@ class FunctionCall(Expr):
 
     def eval(self, chunk: StreamChunk) -> Column:
         cols = [a.eval(chunk) for a in self.args]
-        if self.name in _STR_FNS:
-            return _eval_str_fn(self, cols)
+        if self.name in _HOST_FNS:
+            return _eval_host_fn(self, cols)
         impl, _ = _REGISTRY[self.name]
         data, mask = impl([c.data for c in cols], [c.mask for c in cols],
                           self.type)
@@ -139,28 +147,48 @@ _STR_ORDER_FNS = {
     "less_than", "less_than_or_equal", "greater_than",
     "greater_than_or_equal",
 }
-#: functions that take VARCHAR operands
+#: functions that take dictionary-id operands (ids are equal exactly when
+#: the values are)
 _STR_OK_FNS = {"equal", "not_equal", "is_null", "is_not_null", "str_rank",
                "coalesce", "case"}
+
+
+def _is_dict_type(t: DataType) -> bool:
+    return t.is_string or t.is_list or t.is_struct
 
 
 def call(name: str, *args: Expr) -> FunctionCall:
     if name not in _REGISTRY:
         raise KeyError(f"unknown function {name!r}")
     args = _decimal_fixup(name, tuple(args))
-    if name in _STR_FNS:
-        for pos in _STR_FNS[name][0][:len(args)]:
-            if not args[pos].type.is_string:
-                raise TypeError(f"{name} expects varchar, got "
-                                f"{args[pos].type.kind.value}")
+    if name in _HOST_FNS:
+        first = _FIRST_OPERAND.get(name)
+        for pos in _HOST_FNS[name][0][:len(args)]:
+            t = args[pos].type
+            ok = (t.kind == first if pos == 0 and first is not None
+                  else t.is_string)
+            if not ok:
+                want = "varchar" if pos or first is None else first.value
+                raise TypeError(f"{name} expects {want}, got "
+                                f"{t.kind.value}")
     elif name in _STR_ORDER_FNS and all(a.type.is_string for a in args):
         # ids are insertion-ordered: order by the dictionary's ranks
         name = "str_" + name
-    elif any(a.type.is_string for a in args) and name not in _STR_OK_FNS:
-        raise NotImplementedError(
-            f"{name} over VARCHAR is not ported yet")
+    elif name not in _STR_OK_FNS:
+        for a in args:
+            if _is_dict_type(a.type):
+                raise NotImplementedError(
+                    f"{name} over {a.type.kind.value} is not ported")
     _, infer = _REGISTRY[name]
     return FunctionCall(name, tuple(args), infer([a.type for a in args]))
+
+
+def struct_field(arg: Expr, name: str) -> FunctionCall:
+    """``(arg).name``: typed by the field's declared type (the binder's
+    form: the field's index as an INT64 literal)."""
+    return FunctionCall("struct_field",
+                        (arg, Literal(arg.type.field_index(name), T.INT64)),
+                        arg.type.field_type(name))
 
 
 def col(index: int, type: DataType) -> InputRef:
@@ -252,14 +280,19 @@ register("abs", _t_first)(_unary(torch.abs))
 def _divide(datas, masks, out_type):
     a, b = datas
     mask = _strict_mask(masks) & (b != 0)  # div-by-zero -> NULL
-    safe_b = torch.where(b == 0, torch.ones_like(b), b)
     if out_type.is_float:
-        r = a.to(out_type.dtype) / safe_b.to(out_type.dtype)
-    else:
-        # SQL integer division truncates toward zero
-        a2, b2 = _common(a, safe_b)
-        r = torch.div(a2, b2, rounding_mode="trunc").to(out_type.dtype)
-    return r, mask
+        safe_b = torch.where(b == 0, torch.ones_like(b), b)
+        return a.to(out_type.dtype) / safe_b.to(out_type.dtype), mask
+    # SQL integer division truncates toward zero. A -1 divisor is kept
+    # from the division like 0 (the minimum over -1 traps the CPU's
+    # divide): its quotient is the dividend negated with wrap-around, so
+    # the minimum over -1 is the minimum, as the reference's lax.div gives
+    minus_one = b == -1
+    safe_b = torch.where((b == 0) | minus_one, torch.ones_like(b), b)
+    a2, b2 = _common(a, safe_b)
+    r = torch.where(minus_one, torch.neg(a2),
+                    torch.div(a2, b2, rounding_mode="trunc"))
+    return r.to(out_type.dtype), mask
 
 
 @register("modulus", _t_same)
@@ -452,15 +485,44 @@ class Cast(Expr):
         elif src.kind == TypeKind.DECIMAL:
             data = _round_div(data, 10 ** src.scale).to(dst.dtype)
         elif dst.kind == TypeKind.DECIMAL:
-            data = torch.round(data.double() * 10 ** dst.scale).long()
+            # half to even, as the reference rounds (PostgreSQL's numeric
+            # rounds half away from zero: ROADMAP C3)
+            data = saturate(torch.round(data.double() * 10 ** dst.scale),
+                            dst.dtype)
         elif src.kind == TypeKind.DATE and dst.kind == TypeKind.TIMESTAMP:
             data = data.long() * USECS_PER_DAY
         elif src.kind == TypeKind.TIMESTAMP and dst.kind == TypeKind.DATE:
             data = torch.div(data.long(), USECS_PER_DAY,
                              rounding_mode="floor").to(dst.dtype)
+        elif src.is_float and dst.kind in _SQL_INTS:
+            # PostgreSQL rounds to the nearest, ties to even (rint); the
+            # reference truncates (ROADMAP C3)
+            data = saturate(torch.round(data.double()), dst.dtype)
+        elif src.is_float and dst.is_integral:
+            data = saturate(data.double(), dst.dtype)
         else:
             data = data.to(dst.dtype)
         return Column(data, c.mask)
+
+
+_SQL_INTS = (TypeKind.INT16, TypeKind.INT32, TypeKind.INT64)
+
+
+def saturate(f: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """float64 -> integer ``dtype`` as the reference converts: NaN to 0,
+    values past the range (±inf included) to its limits. ``Tensor.to``
+    gives the minimum for all of these instead. The comparisons are in
+    float64 against the exact bounds: the maximum 2**(bits-1) - 1 has no
+    float64 when bits is 64, so the upper test is ``>= 2**(bits-1)`` and
+    the maximum is written as an integer."""
+    info = torch.iinfo(dtype)
+    top = float(info.max + 1)
+    high = f >= top
+    low = f < float(info.min)
+    safe = torch.where(torch.isnan(f) | high | low, torch.zeros_like(f), f)
+    out = safe.to(dtype)
+    out = torch.where(high, torch.full_like(out, info.max), out)
+    return torch.where(low, torch.full_like(out, info.min), out)
 
 
 def _round_div(d: torch.Tensor, factor: int) -> torch.Tensor:
@@ -472,6 +534,29 @@ def _round_div(d: torch.Tensor, factor: int) -> torch.Tensor:
 
 def cast(arg: Expr, to: DataType) -> Expr:
     return Cast(arg, to) if arg.type != to else arg
+
+
+def _rounding(float_fn, decimal_fn):
+    """round, floor or ceil: ``float_fn`` over floats, the identity over
+    integers, and over DECIMAL ``decimal_fn(scaled, 10**scale)`` to whole
+    units at the same scale (PostgreSQL's results: 1.25 gives 1, 1, 2;
+    the reference returns the argument, ROADMAP C3)."""
+    def impl(datas, masks, out_type):
+        d = datas[0]
+        if out_type.kind == TypeKind.DECIMAL and out_type.scale:
+            f = 10 ** out_type.scale
+            return decimal_fn(d, f) * f, masks[0]
+        if out_type.is_float:
+            return float_fn(d), masks[0]
+        return d.clone(), masks[0]
+    return impl
+
+
+register("round", _t_first)(_rounding(torch.round, _round_div))
+register("floor", _t_first)(_rounding(
+    torch.floor, lambda d, f: torch.div(d, f, rounding_mode="floor")))
+register("ceil", _t_first)(_rounding(
+    torch.ceil, lambda d, f: -torch.div(-d, f, rounding_mode="floor")))
 
 
 # temporal: epoch-microsecond arithmetic
@@ -584,17 +669,18 @@ def make_extract(field: str, arg: Expr) -> Expr:
 
 
 # ---------------------------------------------------------------------------
-# String functions over dictionary ids. The content lives in the host
-# dictionary, so each function runs on the host. One whose result is a
-# BOOL or an integer (length, LIKE), with literals for its other operands,
-# runs once per dictionary id (a table over every id so far, extended as
-# the dictionary grows), and the result for a chunk is a gather of that
-# table on the card: no row goes to the host, and no host sync. One whose
-# result is a VARCHAR runs once per distinct operand tuple of the chunk
-# (one copy to the host), as does any function with a second column
-# operand. A VARCHAR table over every id would intern its results and then
-# have to extend over them: ``s || '!'`` would add one string per id on
-# every chunk ('x!', 'x!!', ...) until the dictionary is full.
+# Functions over dictionary ids: strings, and LIST, STRUCT and JSONB values.
+# The content lives in the host dictionaries, so each function runs on the
+# host. length, LIKE, regexp_like and regexp_count (a BOOL or an integer,
+# never NULL), with literals for their other operands, run once per
+# dictionary id (a table over every id so far, extended as the dictionary
+# grows), and the result for a chunk is a gather of that table on the card:
+# no row goes to the host, and no host sync. Every other function runs once
+# per distinct operand tuple of the chunk (one copy to the host), its
+# results gathered back on the card. A VARCHAR table over every id would
+# intern its results and then have to extend over them: ``s || '!'`` would
+# add one string per id on every chunk ('x!', 'x!!', ...) until the
+# dictionary is full.
 # ---------------------------------------------------------------------------
 
 def _lookup_str(i: int) -> str:
@@ -792,12 +878,81 @@ def _to_char_floor(args, datas):
     return [_fdiv(datas[0].long(), unit) * unit] + datas[1:]
 
 
-#: name -> (positions of VARCHAR operands, python function of the operands'
-#: python values, result type). A result of None is SQL NULL.
-_STR_FNS: dict[str, tuple] = {
+def _array_access(elems: tuple, n: int):
+    """1-based element access; out of range is NULL."""
+    return elems[n - 1] if 1 <= n <= len(elems) else None
+
+
+def _struct_field(fields: tuple, i: int):
+    return fields[i] if 0 <= i < len(fields) else None
+
+
+# JSONB values are canonical JSON text. A parsed value is cached and shared,
+# so it is never mutated.
+
+@functools.lru_cache(maxsize=4096)
+def _jsonb_parse(s: str):
+    try:
+        return json.loads(s) if s else None
+    except ValueError:
+        return None
+
+
+_MISSING = object()    # an absent key, as opposed to a JSON null
+
+
+def _jsonb_get(j, key):
+    if isinstance(j, dict):
+        return j.get(key, _MISSING) if isinstance(key, str) else _MISSING
+    if isinstance(j, list) and isinstance(key, int):
+        # a negative index counts from the end
+        return j[key] if -len(j) <= key < len(j) else _MISSING
+    return _MISSING
+
+
+def _jsonb_access(s: str, key, as_text: bool):
+    """``->`` (jsonb) or ``->>`` (text): an absent key is SQL NULL; under
+    ``->`` a JSON null is jsonb 'null', under ``->>`` SQL NULL."""
+    v = _jsonb_get(_jsonb_parse(s), key)
+    if v is _MISSING or (as_text and v is None):
+        return None
+    if as_text and isinstance(v, str):
+        return v
+    return T.canonical_json(v)
+
+
+def _jsonb_typeof(s: str):
+    if s == "null":
+        return "null"
+    v = _jsonb_parse(s)
+    if v is None:
+        return None
+    return {dict: "object", list: "array", str: "string", bool: "boolean",
+            int: "number", float: "number"}.get(type(v))
+
+
+def _jsonb_array_length(s: str):
+    v = _jsonb_parse(s)
+    return len(v) if isinstance(v, list) else None
+
+
+def _t_elem(ts):
+    return ts[0].elem_type
+
+
+#: name -> (positions of dictionary-id operands, python function of the
+#: operands' python values, result type or a function of the operand
+#: types). A result of None is SQL NULL. An operand that is a LIST or a
+#: STRUCT arrives as its tuple, a VARCHAR, BYTEA or JSONB one as its text,
+#: any other as an int.
+_HOST_FNS: dict[str, tuple] = {
     "lower": ((0,), str.lower, T.VARCHAR),
     "upper": ((0,), str.upper, T.VARCHAR),
+    "trim": ((0,), str.strip, T.VARCHAR),
+    "ltrim": ((0,), str.lstrip, T.VARCHAR),
+    "rtrim": ((0,), str.rstrip, T.VARCHAR),
     "substr": ((0,), _substr, T.VARCHAR),
+    "substring": ((0,), _substr, T.VARCHAR),
     "length": ((0,), len, T.INT64),
     "concat_op": ((0, 1), lambda a, b: a + b, T.VARCHAR),
     "like": ((0, 1), _like, T.BOOL),
@@ -811,10 +966,34 @@ _STR_FNS: dict[str, tuple] = {
     "regexp_match_group": ((0, 1), _regexp_match_group, T.VARCHAR),
     "split_part": ((0, 1), _split_part, T.VARCHAR),
     "to_char": ((1,), _to_char, T.VARCHAR),
+    "array_access": ((0,), _array_access, _t_elem),
+    "array_length": ((0,), len, T.INT64),
+    # ``call`` types it INT64, as the reference's registry does;
+    # ``struct_field()`` by the field's declared type, as its binder does
+    "struct_field": ((0,), _struct_field, T.INT64),
+    "jsonb_get_field": ((0, 1), lambda s, k: _jsonb_access(s, k, False),
+                        T.JSONB),
+    "jsonb_get_elem": ((0,), lambda s, i: _jsonb_access(s, i, False),
+                       T.JSONB),
+    "jsonb_get_field_text": ((0, 1), lambda s, k: _jsonb_access(s, k, True),
+                             T.VARCHAR),
+    "jsonb_get_elem_text": ((0,), lambda s, i: _jsonb_access(s, i, True),
+                            T.VARCHAR),
+    "jsonb_typeof": ((0,), _jsonb_typeof, T.VARCHAR),
+    "jsonb_array_length": ((0,), _jsonb_array_length, T.INT64),
 }
-for _name, (_, _, _out) in _STR_FNS.items():
-    # evaluated by ``_eval_str_fn``, not through an impl
-    _REGISTRY[_name] = (None, lambda ts, _t=_out: _t)
+#: the kind the first operand must have, where it is not a string
+_FIRST_OPERAND = {
+    "array_access": TypeKind.LIST, "array_length": TypeKind.LIST,
+    "struct_field": TypeKind.STRUCT,
+    **{n: TypeKind.JSONB for n in _HOST_FNS if n.startswith("jsonb_")},
+}
+#: the functions evaluated through a table over every dictionary id
+_PER_ID_FNS = {"length", "like", "not_like", "regexp_like", "regexp_count"}
+for _name, (_, _, _out) in _HOST_FNS.items():
+    # evaluated by ``_eval_host_fn``, not through an impl
+    _REGISTRY[_name] = (None, _out if callable(_out)
+                        else lambda ts, _t=_out: _t)
 
 
 class _IdTable:
@@ -848,16 +1027,17 @@ class _IdTable:
 _ID_TABLES: dict = {}
 
 
-def _eval_str_fn(e: "FunctionCall", cols) -> Column:
-    """A string function over a chunk (see the section's note)."""
-    str_pos, fn, out_type = _STR_FNS[e.name]
+def _eval_host_fn(e: "FunctionCall", cols) -> Column:
+    """A function over dictionary ids, on a chunk (see the section's
+    note)."""
+    str_pos, fn, _ = _HOST_FNS[e.name]
+    out_type = e.type
     mask = _strict_mask([c.mask for c in cols])
     if any(isinstance(a, Literal) and a.value is None for a in e.args):
         return Column(torch.zeros_like(cols[0].data, dtype=out_type.dtype),
                       mask)
     cols_at = [i for i, a in enumerate(e.args) if not isinstance(a, Literal)]
-    if (len(cols_at) == 1 and cols_at[0] in str_pos
-            and not out_type.is_string):
+    if e.name in _PER_ID_FNS and len(cols_at) == 1 and cols_at[0] in str_pos:
         # one column operand, a VARCHAR one: gather from its id table
         at = cols_at[0]
         lits = tuple(None if i == at else a.value
@@ -872,9 +1052,9 @@ def _eval_str_fn(e: "FunctionCall", cols) -> Column:
         ids = cols[at].data
         t = table.on(ids.device, len(GLOBAL_STRING_DICT))
         return Column(t[ids.long().clamp(0, t.shape[0] - 1)], mask)
-    # a VARCHAR result, or a second column operand: once per distinct
-    # operand tuple of the rows whose operands are all non-NULL (a NULL
-    # row's sentinel never reaches the function)
+    # every other function: once per distinct operand tuple of the rows
+    # whose operands are all non-NULL (a NULL row's sentinel never reaches
+    # the function)
     datas = [c.data for c in cols]
     if e.name == "to_char":
         datas = _to_char_floor(e.args, datas)
@@ -888,13 +1068,14 @@ def _eval_str_fn(e: "FunctionCall", cols) -> Column:
     wanted[inv[valid]] = True
     vals = np.zeros(len(uniq), out_type.np_dtype)
     known = np.zeros(len(uniq), bool)
+    decode = [int if i not in str_pos
+              else GLOBAL_LIST_DICT.lookup if a.type.is_list or a.type.is_struct
+              else _lookup_str for i, a in enumerate(e.args)]
     for u in np.nonzero(wanted)[0]:
-        args = [_lookup_str(v) if i in str_pos else int(v)
-                for i, v in enumerate(uniq[u])]
-        r = fn(*args)
+        r = fn(*(dec(int(v)) for dec, v in zip(decode, uniq[u])))
         if r is not None:
-            vals[u] = (GLOBAL_STRING_DICT.intern(r) if out_type.is_string
-                       else r)
+            # VARCHAR and JSONB results interned, a STRUCT one too
+            vals[u] = out_type.to_physical(r)
             known[u] = True
     dev = cols[0].data.device
     return Column(torch.from_numpy(vals[inv]).to(dev),

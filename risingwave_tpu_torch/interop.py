@@ -16,19 +16,25 @@ flax dataclasses with numpy leaves (``jax.tree_util.tree_map(np.asarray,
 state)``) or plain mappings. Nothing of JAX is imported here. The agg and
 join states carry their checkpoint marks and LRU stamps across too. Host
 states hold physical values, so a VARCHAR id in them is the reference's
-dictionary's: a caller carrying strings re-interns them.
+dictionary's: a caller carrying strings re-interns them. ``reintern`` and
+``physical_row_from_jax`` do that for one value or row, and
+``chunk_from_jax`` for a chunk given its schema: VARCHAR, BYTEA and JSONB
+ids by their text, LIST and STRUCT ids by their content (nested structs
+field by field), through the reference's dictionaries passed in. The HLL
+lanes of an agg state are plain int64 lanes and carry across as they are.
 """
 
 from __future__ import annotations
 
 from collections.abc import Mapping
-from typing import Any
+from typing import Any, Optional, Sequence
 
 import numpy as np
 import torch
 
 from . import DEFAULT_DEVICE
 from .common.chunk import Column, StreamChunk
+from .common.types import GLOBAL_STRING_DICT, DataType, Schema
 from .ops.grouped_agg import AggState
 from .ops.hash_table import DeviceHashTable
 from .ops.interval_join import IntervalJoinState, state_from_host
@@ -48,12 +54,64 @@ def _tensor(a: Any, device) -> torch.Tensor:
     return torch.tensor(np.array(a), device=device)
 
 
-def chunk_from_jax(chunk: Any, device=DEFAULT_DEVICE) -> StreamChunk:
+def _content(v: Any, t: DataType) -> Any:
+    """A python value of type ``t`` as this package interns it: a struct
+    (or a nested one) as a tuple of its fields' values, a list as a
+    tuple of elements."""
+    if v is None:
+        return None
+    if t.is_struct:
+        return tuple(_content(e, ft)
+                     for e, (_, ft) in zip(v, t.struct_fields))
+    if t.is_list:
+        return tuple(_content(e, t.elem_type) for e in v)
+    return v
+
+
+def reintern(value: Any, t: DataType, strings: Any, lists: Any) -> Any:
+    """A physical value of the reference's as this package's: a VARCHAR,
+    BYTEA or JSONB id re-interned by its text (``strings``: the
+    reference's string dictionary), a LIST or STRUCT id by its content
+    (``lists``: its list dictionary); any other value as it is."""
+    if value is None:
+        return None
+    if t.is_string:
+        return GLOBAL_STRING_DICT.intern(strings.lookup(int(value)))
+    if t.is_list or t.is_struct:
+        return t.to_physical(_content(lists.lookup(int(value)), t))
+    return value
+
+
+def physical_row_from_jax(row: Sequence, types: Sequence[DataType],
+                          strings: Any, lists: Any) -> tuple:
+    """A host state's physical row (a MaterializedAgg multiset key, an
+    OverWindow entry) with its dictionary ids re-interned."""
+    return tuple(reintern(v, t, strings, lists) for v, t in zip(row, types))
+
+
+def chunk_from_jax(chunk: Any, device=DEFAULT_DEVICE,
+                   schema: Optional[Schema] = None, strings: Any = None,
+                   lists: Any = None) -> StreamChunk:
+    """The reference's chunk; with ``schema``, its dictionary-typed
+    columns re-interned through the reference's ``strings`` and ``lists``
+    dictionaries (``reintern``)."""
+    cols = []
+    for ci, c in enumerate(_get(chunk, "columns")):
+        data = np.array(_get(c, "data"))
+        mask = np.array(_get(c, "mask"))
+        t = None if schema is None else schema[ci].type
+        if t is not None and (t.is_string or t.is_list or t.is_struct):
+            # NULL rows keep their 0 (an empty struct has no arity)
+            uniq, inv = np.unique(data[mask], return_inverse=True)
+            mapped = np.array([reintern(u, t, strings, lists)
+                               for u in uniq.tolist()], data.dtype)
+            data = np.zeros_like(data)
+            data[mask] = mapped[inv.reshape(-1)]
+        cols.append(Column(torch.tensor(data, device=device),
+                           torch.tensor(mask, device=device)))
     return StreamChunk(
         _tensor(_get(chunk, "ops"), device), _tensor(_get(chunk, "vis"), device),
-        tuple(Column(_tensor(_get(c, "data"), device),
-                     _tensor(_get(c, "mask"), device))
-              for c in _get(chunk, "columns")))
+        tuple(cols))
 
 
 def hash_table_from_jax(table: Any, device=DEFAULT_DEVICE) -> DeviceHashTable:

@@ -7,7 +7,10 @@ is built with ``g++`` at first use into ``build/native/`` beside the package,
 its file name keyed by a hash of the source, so an edited source is rebuilt
 and a stale library is never loaded. Nothing is compiled at import. Where
 there is no compiler, ``codec()`` is None and callers use the Python
-encoders, which give the same bytes.
+encoders, which give the same bytes. JSONB and BYTEA go through the string
+code, as VARCHAR does; LIST and STRUCT have no native code, so
+``codec(types)`` is None for a row that holds one, and such rows take the
+Python encoders (the reference's codec raises on them, ROADMAP C3).
 """
 
 from __future__ import annotations
@@ -31,7 +34,8 @@ CXX_FLAGS = ("-O3", "-shared", "-fPIC", "-std=c++17")
 #: TypeKind name -> native type code (rowcodec.cpp's header comment)
 _CODE_BY_KIND = {"BOOL": 0, "INT16": 1, "INT32": 2, "DATE": 2, "INT64": 3,
                  "TIME": 3, "TIMESTAMP": 3, "INTERVAL": 3, "SERIAL": 3,
-                 "DECIMAL": 3, "FLOAT32": 4, "FLOAT64": 5, "VARCHAR": 6}
+                 "DECIMAL": 3, "FLOAT32": 4, "FLOAT64": 5, "VARCHAR": 6,
+                 "BYTEA": 6, "JSONB": 6}
 #: native type code -> the numpy dtype the C side reads
 _NP_BY_CODE = {0: np.uint8, 1: np.int16, 2: np.int32, 3: np.int64,
                4: np.float32, 5: np.float64}
@@ -81,10 +85,14 @@ def _build() -> Optional[ctypes.CDLL]:
     return lib
 
 
-def codec() -> Optional["RowCodec"]:
+def codec(types=None) -> Optional["RowCodec"]:
     """The process-wide codec, built at the first call, or None when no
-    compiler is available."""
+    compiler is available or when one of ``types`` (the row's column
+    types, if given) has no native code."""
     global _lib, _tried
+    if types is not None and any(t.kind.name not in _CODE_BY_KIND
+                                 for t in types):
+        return None
     with _build_lock:
         if not _tried:
             _tried = True

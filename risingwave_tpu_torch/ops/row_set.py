@@ -187,7 +187,7 @@ def write_rows(state_table, datas, masks, live) -> None:
     row codec encodes them in one call where it is built."""
     types = state_table.schema.types
     from ..native import codec as native_codec
-    codec = native_codec()
+    codec = native_codec(types)
     if codec is not None:
         live_idx = np.nonzero(live)[0]
         dead_idx = np.nonzero(~live)[0]

@@ -279,7 +279,7 @@ class HashAggExecutor(SingleInputExecutor):
             live = lanes[0] > 0
             types = self.state_table.schema.types
             from ..native import codec as native_codec
-            codec = native_codec()
+            codec = native_codec(types)
             if codec is not None:
                 ones = np.ones(len(live), bool)
                 ins_idx = np.nonzero(live)[0]

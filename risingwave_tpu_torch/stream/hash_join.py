@@ -472,9 +472,9 @@ class HashJoinExecutor(Executor):
             del_idx = np.nonzero(tomb & ~occ)[0]
             ins_idx = np.nonzero(occ)[0]
             from ..native import codec as native_codec
-            codec = native_codec()
+            types = table.schema.types
+            codec = native_codec(types)
             if codec is not None:
-                types = table.schema.types
                 pk = table.pk_indices
                 pk_d = [datas[i] for i in pk]
                 pk_m = [masks[i] for i in pk]

@@ -5,15 +5,21 @@ Counterpart of ``risingwave_tpu/stream/materialized_agg.py``: aggregates
 whose state cannot be a fixed set of device lanes keep their input values
 materialized per (group, call) and recompute outputs from the multiset —
 exact DISTINCT aggregates, min/max over a retractable input (a delete may
-remove the current extremum), and the collecting kinds (string_agg,
-percentile_cont, mode). These are ragged by nature, like VARCHAR contents,
-so they live on the host; the planner routes an agg here only when a call
-requires it.
+remove the current extremum), and the collecting kinds (array_agg,
+string_agg, percentile_cont, mode). These are ragged by nature, like
+VARCHAR contents, so they live on the host; the planner routes an agg here
+only when a call requires it, with its sibling calls: an
+approx_count_distinct among them is evaluated exactly, as the multiset's
+distinct count. array_agg gives its elements in ascending order of their
+python values, NULL elements last, interned into ``GLOBAL_LIST_DICT``.
 
 State is one value multiset (Counter) per (group, call), persisted to a
 StateTable as (group_key…, agg_idx, is_null, val_i, val_f, val_s) → count
-rows, so recovery rebuilds the exact multisets. VARCHAR values ride the
-``_val_s`` column, which persists string content, not dictionary ids.
+rows, so recovery rebuilds the exact multisets. VARCHAR, BYTEA and JSONB
+values ride the ``_val_s`` column, which persists string content, not
+dictionary ids. LIST and STRUCT arguments are rejected: their ids are
+process-local and no value column holds their content, so persisted ids
+would miscount after recovery.
 """
 
 from __future__ import annotations
@@ -27,7 +33,8 @@ from ..common.chunk import (
     OP_UPDATE_INSERT, StreamChunk, chunk_to_rows, make_chunk,
 )
 from ..common.types import (
-    FLOAT64, GLOBAL_STRING_DICT, INT64, VARCHAR, Field, Schema,
+    FLOAT64, GLOBAL_LIST_DICT, GLOBAL_STRING_DICT, INT64, VARCHAR, Field,
+    Schema,
 )
 from ..expr.agg import AggCall
 from ..storage.state_table import StateTable
@@ -103,6 +110,13 @@ class MaterializedAggExecutor(SingleInputExecutor):
         self.group_keys = tuple(group_keys)
         self.load_vnodes = load_vnodes
         self.agg_calls = tuple(agg_calls)
+        for c in self.agg_calls:
+            if c.arg_type is not None and (c.arg_type.is_list
+                                           or c.arg_type.is_struct):
+                raise ValueError(
+                    f"{c.kind}() over an array column is not supported"
+                    if c.arg_type.is_list else
+                    f"{c.kind}() over a struct column is not supported")
         self.in_schema = input.schema
         self.state_table = state_table
         self.out_capacity = out_capacity
@@ -183,6 +197,22 @@ class MaterializedAggExecutor(SingleInputExecutor):
             if c.distinct:
                 return len(counter)
             return sum(counter.values())
+        if c.kind == "approx_count_distinct":
+            # routed here beside a sibling that needs the multiset: the
+            # exact distinct count meets the approximate contract
+            return len(counter)
+        if c.kind == "array_agg":
+            # ascending by python value (an order PostgreSQL leaves
+            # unspecified), the NULL elements last; NULLs alone still
+            # aggregate
+            if not counter and not g.null_counts[i]:
+                return None
+            conv = c.arg_type.to_python
+            out: list = []
+            for v, n in sorted((conv(v), n) for v, n in counter.items()):
+                out.extend([v] * n)
+            out.extend([None] * g.null_counts[i])
+            return GLOBAL_LIST_DICT.intern(out)
         if not counter:
             return None              # every arg NULL (or the group empty)
         if c.kind == "sum":

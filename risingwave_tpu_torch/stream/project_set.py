@@ -10,14 +10,16 @@ and new rows of a pair may expand to different element counts.
 Host tier, as in the reference: the expressions are evaluated on the
 device, the expansion runs on the host per row, and the output chunks go
 to ``device``. VARCHAR elements are interned into this
-package's ``GLOBAL_STRING_DICT``.
+package's ``GLOBAL_STRING_DICT``. ``unnest`` over a LIST column gives its
+elements through the list's element type (``DataType.elem_type``), so an
+``array_agg`` output unnests into typed rows.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import re
-from typing import Sequence
+from typing import Optional, Sequence
 
 import numpy as np
 
@@ -47,9 +49,11 @@ class TableFuncCall(Expr):
         raise RuntimeError("table function outside ProjectSet")
 
 
-def series_values(name: str, args: Sequence) -> list:
+def series_values(name: str, args: Sequence,
+                  elem_type: Optional[DataType] = None) -> list:
     """One row's argument values → the list of its elements (physical
-    values: VARCHAR as its dictionary id)."""
+    values: VARCHAR as its dictionary id). ``elem_type``: unnest's element
+    type, when its argument is typed as a LIST."""
     if name == "generate_series":
         if len(args) == 2:
             lo, hi, step = args[0], args[1], 1
@@ -77,6 +81,9 @@ def series_values(name: str, args: Sequence) -> list:
             return []
         if not isinstance(lst, (tuple, list)):
             lst = GLOBAL_LIST_DICT.lookup(int(lst))
+        if elem_type is not None:
+            return [None if e is None else elem_type.to_physical(e)
+                    for e in lst]
         return [GLOBAL_STRING_DICT.intern(e) if isinstance(e, str) else e
                 for e in lst]
     raise ValueError(f"unknown table function {name}")
@@ -126,8 +133,11 @@ class ProjectSetExecutor(SingleInputExecutor):
                 if isinstance(e, TableFuncCall):
                     argv = [d[i].item() if m[i] else None
                             for d, m in tf_args[ci]]
-                    series = [(ci, v, idx) for idx, v in
-                              enumerate(series_values(e.name, argv))]
+                    elem_t = (e.args[0].type.elem_type
+                              if e.name == "unnest"
+                              and e.args[0].type.is_list else None)
+                    series = [(ci, v, idx) for idx, v in enumerate(
+                        series_values(e.name, argv, elem_t))]
             for ci, v, idx in series:
                 row = [None] * len(self.exprs)
                 for pc, bv in base.items():

@@ -17,6 +17,10 @@ ingest with synchronizing calls made errors; TPC-H q3 and q10 over table
 jobs (load, backfill, one RF1 and one RF2) and the DECIMAL/DATE
 expressions, string functions and DECIMAL aggs on the card against the
 CPU, and the Backfill's ChunkBatch filter with synchronizing calls made
+errors; HLL register lanes (the rank's edge values, -0.0, NaN and the
+INT64 extremes), integer division by -1 and the saturating float casts,
+and the JSONB, array and struct functions on the card against the CPU,
+and an HLL HashAgg's batched ingest with synchronizing calls made
 errors. They skip where no card is present;
 run them on the card
 with ``python -m pytest tests/test_torch_gpu.py -m gpu``.
@@ -983,3 +987,142 @@ def _string_fns(device):
 
 def test_regexp_and_to_char_on_card_equal_cpu(cuda):
     assert _string_fns("cuda") == _string_fns("cpu")
+
+
+def _hll_lanes(device):
+    """HLL register contributions and ranks of seeded and edge values:
+    the rho edges, -0.0, NaN, ±inf and the INT64 extremes."""
+    from risingwave_tpu_torch.common import FLOAT64, INT64
+    from risingwave_tpu_torch.expr import agg
+    from risingwave_tpu_torch.expr.agg import hll_rho
+    rng = np.random.default_rng(5)
+    edges = [0, 1, 2 ** 53 - 1, 2 ** 53, 2 ** 59, 2 ** 60 - 1]
+    ints = np.concatenate([rng.integers(-2 ** 63, 2 ** 63 - 1, 500,
+                                        dtype=np.int64),
+                           [-2 ** 63, 2 ** 63 - 1, 0, -1]])
+    floats = np.concatenate([rng.normal(0, 1e6, 500),
+                             [-0.0, 0.0, np.nan, np.inf, -np.inf]])
+    out = [hll_rho(torch.tensor(edges, device=device)).cpu()]
+    for vals, t in ((ints, INT64), (floats, FLOAT64)):
+        v = torch.from_numpy(vals).to(device)
+        on = torch.ones(v.shape, dtype=torch.bool, device=device)
+        call = agg("approx_count_distinct", 0, t)
+        regs = [c.amax() for c in call.hll_contributions(v, on)]
+        out.append(torch.stack(call.hll_contributions(v, on)).cpu())
+        out.append(torch.stack(regs).cpu())
+    return out
+
+
+def test_hll_registers_on_card_equal_cpu(cuda):
+    for a, b in zip(_hll_lanes("cuda"), _hll_lanes("cpu")):
+        assert torch.equal(a, b)
+
+
+def _overflow_casts(device):
+    """C9 and C10: the minimum over -1 per integer width, and NaN, ±inf and
+    out-of-range floats cast into every integer kind and DECIMAL(2)."""
+    from risingwave_tpu_torch.common import (
+        DATE, FLOAT64, INT16, INT32, INT64, TIMESTAMP, Schema, decimal,
+        make_chunk,
+    )
+    from risingwave_tpu_torch.expr import Cast, call, col
+    out = []
+    for t in (INT16, INT32, INT64):
+        lo = -(2 ** (8 * t.np_dtype.itemsize - 1))
+        sch = Schema.of(("a", t), ("b", t))
+        ch = make_chunk(sch, [(lo, -1), (lo, 2), (7, -1), (5, 0)],
+                        capacity=8, device=device)
+        for fn in ("divide", "modulus"):
+            c = call(fn, col(0, t), col(1, t)).eval(ch)
+            out.append((c.data.cpu(), c.mask.cpu()))
+    sch = Schema.of(("f", FLOAT64))
+    vals = [float("nan"), float("inf"), float("-inf"), 1e10, -1e10, 1e19,
+            -1e19, 3.7, 2.5, -2.5]
+    ch = make_chunk(sch, [(v,) for v in vals], capacity=16, device=device)
+    for t in (INT16, INT32, INT64, TIMESTAMP, DATE, decimal(2)):
+        out.append((Cast(col(0, FLOAT64), t).eval(ch).data.cpu(),))
+    return out
+
+
+def test_overflow_division_and_saturating_casts_on_card_equal_cpu(cuda):
+    for a, b in zip(_overflow_casts("cuda"), _overflow_casts("cpu")):
+        for x, y in zip(a, b):
+            assert torch.equal(x, y)
+
+
+def test_hll_hash_agg_batched_ingest_makes_no_host_sync(cuda):
+    """One epoch of bids through Project and a HashAgg with two
+    approx_count_distinct calls (``map_chunk_batch``) with synchronizing
+    calls made errors; its registers then equal a CPU run's."""
+    from risingwave_tpu_torch.common import INT64
+    from risingwave_tpu_torch.expr import agg, col, count_star
+    from risingwave_tpu_torch.stream import HashAggExecutor, ProjectExecutor
+
+    def run(device, checked):
+        gen = cs.bench_gen(device)
+        src = cs.DeviceBidSource(gen, [], 1)
+        proj = ProjectExecutor(src, [col(0, INT64), col(1, INT64),
+                                     col(2, INT64)],
+                               names=["auction", "bidder", "price"])
+        ex = HashAggExecutor(
+            proj, [0], [count_star(), agg("approx_count_distinct", 1, INT64),
+                        agg("approx_count_distinct", 2, INT64)],
+            table_capacity=1 << 16, device=device)
+        batch = gen.next_batch(4)
+        if checked:
+            asyncio.run(cs.sync_free_batch(ex, batch))
+        else:
+            async def ingest():
+                async for p in proj.map_chunk_batch(batch):
+                    async for _ in ex.map_chunk_batch(p):
+                        pass
+            asyncio.run(ingest())
+        return [lane.cpu() for lane in ex.state.lanes] + [
+            ex.state.table.occupied.cpu()]
+
+    for a, b in zip(run("cuda", True), run("cpu", False)):
+        assert torch.equal(a, b)
+
+
+def _nested_fns(device):
+    """The JSONB, array and struct functions over one chunk."""
+    import json
+    from risingwave_tpu_torch.common import (
+        INT64, JSONB, VARCHAR, Schema, list_of, make_chunk, struct_of,
+    )
+    from risingwave_tpu_torch.expr import Literal, call, col
+    from risingwave_tpu_torch.expr.expr import struct_field
+    rng = np.random.default_rng(3)
+    st = struct_of(("who", VARCHAR), ("n", INT64))
+    sch = Schema.of(("j", JSONB), ("l", list_of(INT64)), ("s", st))
+    rows = []
+    for i in range(200):
+        obj = {"user": {"name": str(rng.choice(["ada", "bob", "eve"]))},
+               "n": int(rng.integers(0, 9)), "tags": list(range(i % 4))}
+        rows.append((json.dumps(obj, separators=(",", ":"), sort_keys=True)
+                     if rng.random() > 0.1 else None,
+                     tuple(int(x) for x in rng.integers(0, 5, i % 5)),
+                     (str(rng.choice(["x", "y"])), i)))
+    ch = make_chunk(sch, rows, capacity=256, device=device)
+    j, lst, s = col(0, JSONB), col(1, list_of(INT64)), col(2, st)
+    exprs = [call("jsonb_get_field_text", call("jsonb_get_field", j,
+                                               Literal("user", VARCHAR)),
+                  Literal("name", VARCHAR)),
+             call("jsonb_get_field", j, Literal("tags", VARCHAR)),
+             call("jsonb_array_length", call("jsonb_get_field", j,
+                                             Literal("tags", VARCHAR))),
+             call("jsonb_typeof", j),
+             call("array_length", lst),
+             call("array_access", lst, Literal(2, INT64)),
+             struct_field(s, "who"), struct_field(s, "n")]
+    out = []
+    for e in exprs:
+        c = e.eval(ch)
+        data, mask = c.data.cpu().numpy()[:200], c.mask.cpu().numpy()[:200]
+        out.append([e.type.to_python(d) if m else None
+                    for d, m in zip(data, mask)])
+    return out
+
+
+def test_nested_type_functions_on_card_equal_cpu(cuda):
+    assert _nested_fns("cuda") == _nested_fns("cpu")

@@ -460,8 +460,18 @@ def test_filter_degrades_broken_update_pairs_and_watermarks_pass():
 
 
 def test_unported_arguments_raise():
-    """What the port still rejects: approx_count_distinct (the HLL lanes)
-    and array_agg (a collecting kind; the port has no LIST type)."""
-    for kind in ("approx_count_distinct", "array_agg"):
-        with pytest.raises(NotImplementedError, match=kind):
-            TE.agg(kind, 0, T.INT64)
+    """Both kinds the port once rejected now construct:
+    approx_count_distinct as 16 HLL register lanes (INT64 output), and
+    array_agg on the host tier (a LIST of its argument's type)."""
+    hll = TE.agg("approx_count_distinct", 0, T.INT64)
+    arr = TE.agg("array_agg", 0, T.VARCHAR)
+    assert hll.output_type == T.INT64
+    assert arr.output_type == T.list_of(T.VARCHAR)
+    assert hll.num_lanes == 16 and not hll.lanes_unsupported
+    assert hll.reduce_ops() == ["max"] * 16
+    assert arr.lanes_unsupported
+    from risingwave_tpu_torch.stream.materialized_agg import (
+        call_needs_materialized,
+    )
+    assert call_needs_materialized(arr, True)
+    assert not call_needs_materialized(hll, False)
