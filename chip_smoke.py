@@ -170,7 +170,26 @@ Phases (any failure exits non-zero and prints no result line):
      approx_count_distinct(bidder)) → Materialize, equal to numpy's; each
      part's source rows/s and B3 launches; B3's busiest input at (a)'s
      group table kept;
- 24. each kernel and its plain version timed on the inputs its path gave
+ 24. SQL end to end through the port's ``Session(device="cuda")``: (a)
+     the NEXmark sources by tests/test_nexmark_queries.py's DDL, then
+     q105, q105 without its TopN (every group of its join gated), q17, q18
+     and q7 each created by ``CREATE MATERIALIZED VIEW`` in a Session of
+     its own (chunks of 4096 rows, 16 per source leaf per
+     tick, one warm-up and three timed ticks; phase 13's capacities, q7's
+     join sized from the bids' prices; no join grows), each MV equal to
+     numpy over phase 13's chunks (what a fresh generator per leaf, seed
+     42, emits); in q17's Session a SELECT grouped by auction
+     (BatchHashAgg, a group per auction of q17), a join
+     of q17 with an MV over it (BatchHashJoin), an ORDER BY ... LIMIT and
+     a window function (the stream fold), each equal to numpy; source
+     rows/s per Session, each SELECT's ms, B1 and B3 launches per MV, peak
+     device memory; (b) tests/test_tpch.py's tables loaded from phase
+     21's generator at SF ``SQL_TPCH_SF`` by multi-row INSERT statements,
+     q3 and q10 created by SQL and backfilled, then an RF1 by INSERT, an
+     RF2 by DELETE ... IN (...) and an UPDATE of a customer's segment,
+     both MVs equal to numpy after each; load rows/s and staleness per
+     refresh;
+ 25. each kernel and its plain version timed on the inputs its path gave
      it, as in phase 2 (B1 on q7's, q105's, q5_hop's, the TPC-H joins' and
      q9's or q20's busiest inputs and summed over every input of the q7
      run, with each input's count of keyed rows; B2 on the fused q7 run's
@@ -183,7 +202,7 @@ Phases (any failure exits non-zero and prints no result line):
      one JSON line of every kernel: launches on its paths' runs (B1's and
      B3's on each path's run), exact agreement, its time and its plain
      version's, and its bound on an H100;
- 25. the last line: ``{"ok": true, "device": {...}}``.
+ 26. the last line: ``{"ok": true, "device": {...}}``.
 
 It imports nothing of JAX and nothing of the JAX package.
 """
@@ -2990,7 +3009,7 @@ def run_small_ops(device, bids) -> dict:
 #: the scale factor: on an H100 SF 0.25 takes about 70 s, so SF 1 would
 #: take about 280 s, more than the phase's ~4 minutes; halved once
 #: (PERF.md section 4)
-TPCH_SF = 0.5
+TPCH_SF = 0.25
 TPCH_SEED = 7
 TPCH_LOAD_CHUNKS_PER_EPOCH = 64      # DML chunks of CHUNK rows per epoch
 TPCH_REFRESH_PAIRS = 2               # RF1 epochs, then as many RF2 epochs
@@ -4318,6 +4337,512 @@ def run_json_events(device, bids) -> dict:
             "b3_launches": b3}
 
 
+# ---------------------------------------------------------------------------
+# phase 24: SQL end to end through the port's Session
+# ---------------------------------------------------------------------------
+
+# tests/test_nexmark_queries.py's DDL of the three NEXmark sources
+SQL_NEXMARK_DDL = """
+CREATE SOURCE bid (auction BIGINT, bidder BIGINT, price BIGINT,
+  channel VARCHAR, url VARCHAR, date_time TIMESTAMP, extra VARCHAR)
+WITH (connector = 'nexmark', nexmark_table = 'bid');
+CREATE SOURCE auction (id BIGINT, item_name VARCHAR, description VARCHAR,
+  initial_bid BIGINT, reserve BIGINT, date_time TIMESTAMP,
+  expires TIMESTAMP, seller BIGINT, category BIGINT, extra VARCHAR)
+WITH (connector = 'nexmark', nexmark_table = 'auction');
+CREATE SOURCE person (id BIGINT, name VARCHAR, email_address VARCHAR,
+  credit_card VARCHAR, city VARCHAR, state VARCHAR, date_time TIMESTAMP,
+  extra VARCHAR)
+WITH (connector = 'nexmark', nexmark_table = 'person')
+"""
+
+# the MVs' SQL, as tests/test_nexmark_extended.py and
+# tests/test_torch_nexmark_sql.py write them
+SQL_MVS = {
+    "q105": """CREATE MATERIALIZED VIEW q105 AS
+        SELECT a.id AS auction_id, a.item_name, COUNT(b.auction)
+          AS bid_count
+        FROM auction a JOIN bid b ON a.id = b.auction
+        GROUP BY a.id, a.item_name
+        ORDER BY bid_count DESC LIMIT 1000""",
+    # q105 without its TopN: every group of the join's output is gated
+    "q105_join": """CREATE MATERIALIZED VIEW q105_join AS
+        SELECT a.id AS auction_id, a.item_name, COUNT(b.auction)
+          AS bid_count
+        FROM auction a JOIN bid b ON a.id = b.auction
+        GROUP BY a.id, a.item_name""",
+    "q7": """CREATE MATERIALIZED VIEW q7 AS
+        SELECT B.auction, B.price, B.bidder, B.date_time
+        FROM bid B
+        JOIN (
+            SELECT MAX(price) AS maxprice, window_end as date_time
+            FROM TUMBLE(bid, date_time, INTERVAL '10' SECOND)
+            GROUP BY window_end
+        ) B1 ON B.price = B1.maxprice
+        WHERE B.date_time BETWEEN B1.date_time - INTERVAL '10' SECOND
+              AND B1.date_time""",
+    "q17": """CREATE MATERIALIZED VIEW q17 AS
+        SELECT auction, to_char(date_time, 'YYYY-MM-DD') AS day,
+          count(*) AS total_bids,
+          count(*) filter (where price < 10000) AS rank1_bids,
+          min(price) AS min_price, max(price) AS max_price,
+          avg(price) AS avg_price, sum(price) AS sum_price
+        FROM bid GROUP BY auction, to_char(date_time, 'YYYY-MM-DD')""",
+    "q18": """CREATE MATERIALIZED VIEW q18 AS
+        SELECT auction, bidder, price, date_time
+        FROM (SELECT *, RANK() OVER (PARTITION BY bidder, auction
+                  ORDER BY date_time DESC) AS rank_number
+              FROM bid) WHERE rank_number <= 1""",
+}
+SQL_NEXMARK_ORDER = ("q105", "q105_join", "q17", "q18", "q7")
+
+# tests/test_tpch.py's DDL and MVs
+SQL_TPCH_DDL = {
+    "customer": """CREATE TABLE customer (
+        c_custkey BIGINT PRIMARY KEY, c_name VARCHAR, c_address VARCHAR,
+        c_nationkey BIGINT, c_phone VARCHAR, c_acctbal DECIMAL,
+        c_mktsegment VARCHAR, c_comment VARCHAR)""",
+    "orders": """CREATE TABLE orders (
+        o_orderkey BIGINT PRIMARY KEY, o_custkey BIGINT,
+        o_orderdate DATE, o_shippriority BIGINT)""",
+    "lineitem": """CREATE TABLE lineitem (
+        l_orderkey BIGINT, l_linenumber BIGINT, l_extendedprice DECIMAL,
+        l_discount DECIMAL, l_shipdate DATE, l_returnflag VARCHAR,
+        PRIMARY KEY (l_orderkey, l_linenumber))""",
+    "nation": """CREATE TABLE nation (
+        n_nationkey BIGINT PRIMARY KEY, n_name VARCHAR)""",
+}
+SQL_TPCH_MVS = {
+    "q3": """CREATE MATERIALIZED VIEW q3 AS
+            SELECT o_orderkey, sum(l_extendedprice * (1 - l_discount))
+                       AS revenue,
+                   o_orderdate, o_shippriority
+            FROM customer, orders, lineitem
+            WHERE c_mktsegment = 'BUILDING'
+              AND c_custkey = o_custkey
+              AND l_orderkey = o_orderkey
+              AND o_orderdate < DATE '1995-03-15'
+              AND l_shipdate > DATE '1995-03-15'
+            GROUP BY o_orderkey, o_orderdate, o_shippriority""",
+    "q10": """CREATE MATERIALIZED VIEW q10 AS
+            SELECT c_custkey, c_name,
+                   sum(l_extendedprice * (1 - l_discount)) AS revenue,
+                   n_name
+            FROM customer, orders, lineitem, nation
+            WHERE c_custkey = o_custkey
+              AND l_orderkey = o_orderkey
+              AND o_orderdate >= DATE '1993-10-01'
+              AND o_orderdate < DATE '1994-01-01'
+              AND l_returnflag = 'R'
+              AND c_nationkey = n_nationkey
+            GROUP BY c_custkey, c_name, n_name""",
+}
+# each column's literal form: i integer, s text, d DECIMAL at scale 2,
+# t DATE
+SQL_TPCH_KINDS = {"customer": "issisdss", "orders": "iiti",
+                  "lineitem": "iiddts", "nation": "is"}
+SQL_TPCH_SF = 0.01          # cut for the parser's rate (~9K rows/s)
+SQL_INSERT_ROWS = 4096      # rows per INSERT statement
+
+
+def pow2_at_least(n: float, floor: int = 16) -> int:
+    return 1 << max(int(np.ceil(np.log2(max(n, floor)))), 4)
+
+
+def sql_session(device, **cfg):
+    """A Session at phase 13's capacities (``cfg`` overrides them), the
+    NEXmark sources declared, one chunk of CHUNK rows per source leaf and
+    NEX_CHUNKS_PER_EPOCH per tick."""
+    from risingwave_tpu_torch.frontend import BuildConfig, Session
+    conf = dict(chunk_capacity=CHUNK, agg_table_capacity=Q105_AGG_CAPACITY,
+                join_key_capacity=Q105_KEY_CAPACITY,
+                join_bucket_width=Q105_BUCKET_WIDTH,
+                topn_table_capacity=Q105_TOPN_CAPACITY)
+    conf.update(cfg)
+    s = Session(source_chunk_capacity=CHUNK,
+                chunks_per_tick=NEX_CHUNKS_PER_EPOCH,
+                config=BuildConfig(**conf), device=device)
+    s.run_sql(SQL_NEXMARK_DDL)
+    return s
+
+
+def job_executors(s, name: str) -> list:
+    """Every executor of MV ``name``'s job, root first."""
+    out, todo = [], [s.jobs[name].pipeline]
+    while todo:
+        ex = todo.pop()
+        out.append(ex)
+        todo += [getattr(ex, f) for f in ("input", "left", "right", "inner")
+                 if getattr(ex, f, None) is not None]
+        todo += list(getattr(ex, "inputs", ()))
+    return out
+
+
+def check_not_grown(s, name: str) -> list:
+    """Each join of MV ``name`` at the Session's key capacity and bucket
+    width; returns their (capacity, width)."""
+    cfg = s.config
+    sizes = []
+    for ex in job_executors(s, name):
+        if type(ex).__name__ == "HashJoinExecutor":
+            sizes.append([ex.core.capacity, ex.core.W])
+            if sizes[-1] != [cfg.join_key_capacity, cfg.join_bucket_width]:
+                raise AssertionError(f"the SQL {name} join grew to "
+                                     f"{sizes[-1]}: size it larger")
+    return sizes
+
+
+def q7_sql_sizes(bids) -> tuple:
+    """q7's join sizes from the bids: twice the distinct prices (the join
+    key) and the most bids of one price, as powers of two."""
+    (price,) = host_cols(bids, (2,))
+    _, n = np.unique(price, return_counts=True)
+    return pow2_at_least(2 * len(n), 1 << 10), pow2_at_least(n.max())
+
+
+def q7_sql_expected(bids) -> collections.Counter:
+    """numpy q7 as its SQL reads: each bid whose price is the max of a
+    10 s tumble window whose [end - 10 s, end] holds its date_time (its
+    own window, and the one before when it lies on that window's end)."""
+    auction, bidder, price, ts = host_cols(bids, (0, 1, 2, 5))
+    size = 10 * 1_000_000
+    end = (ts // size) * size + size
+    wins, inv = np.unique(end, return_inverse=True)
+    top = np.full(len(wins), np.iinfo(np.int64).min)
+    np.maximum.at(top, inv.reshape(-1), price)
+    out = collections.Counter()
+    for cand in (end, end - size):
+        at = np.clip(np.searchsorted(wins, cand), 0, len(wins) - 1)
+        hit = (wins[at] == cand) & (top[at] == price) & (ts <= cand) & \
+            (ts >= cand - size)
+        out.update(zip(auction[hit].tolist(), price[hit].tolist(),
+                       bidder[hit].tolist(), ts[hit].tolist()))
+    return out
+
+
+def run_sql_mv(device, name: str, cfg: dict) -> tuple:
+    """A Session running MV ``name`` alone: the CREATE, one warm-up and
+    NEX_EPOCHS - 1 timed ticks. Returns (session, report)."""
+    from risingwave_tpu_torch.frontend.parser import parse_one
+    rt_mod = importlib.import_module("risingwave_tpu_torch.ops.rank_totals")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    s = sql_session(device, **cfg)
+    t0 = time.perf_counter()
+    s._plan(parse_one(SQL_MVS[name]).query)
+    plan_ms = (time.perf_counter() - t0) * 1e3
+    b3_launches(reset=True)
+    rt_mod.rank_totals.launches = 0
+    t0 = time.perf_counter()
+    s.run_sql(SQL_MVS[name])
+    create_ms = (time.perf_counter() - t0) * 1e3
+    s.tick()                                  # the warm-up tick
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(NEX_EPOCHS - 1):
+        s.tick()
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    b1, b3 = rt_mod.rank_totals.launches, b3_launches()
+    leaves = len(s.feeds)
+    timed_rows = leaves * (NEX_EPOCHS - 1) * NEX_CHUNKS_PER_EPOCH * CHUNK
+    return s, {"source_leaves": leaves,
+               "source_rows_per_s": timed_rows / secs,
+               "plan_ms": plan_ms, "create_ms": create_ms,
+               "joins": check_not_grown(s, name),
+               "b1_launches": b1, "b3_launches": b3,
+               "peak_device_bytes": torch.cuda.max_memory_allocated()}
+
+
+def gate_counter(name: str, got: collections.Counter,
+                 want: collections.Counter) -> int:
+    if got != want:
+        raise AssertionError(f"SQL {name} differs from numpy's: "
+                             f"{sum((got - want).values())} extra, "
+                             f"{sum((want - got).values())} missing rows")
+    if not want:
+        raise AssertionError(f"SQL {name} is empty")
+    return sum(want.values())
+
+
+def timed_select(s, sql: str, want, lowered: str = None) -> dict:
+    """One SELECT through the Session, its rows equal to ``want`` (a list
+    in order for ORDER BY, else compared as multisets); ``lowered``: the
+    batch executor its plan must lower to, or None for the stream fold.
+    Returns its ms and B3 launches."""
+    from risingwave_tpu_torch.batch.lower import lower_plan
+    from risingwave_tpu_torch.frontend.parser import parse_one
+    chain = lower_plan(s._plan(parse_one(sql).select), s.store,
+                       catalog=s.catalog, device=s.device)
+    kinds, todo = set(), [chain]
+    while todo:
+        ex = todo.pop()
+        if ex is not None:
+            kinds.add(type(ex).__name__)
+            todo += [getattr(ex, f, None) for f in ("input", "left",
+                                                    "right")]
+    if (lowered is None) != (chain is None) or \
+            (lowered is not None and lowered not in kinds):
+        raise AssertionError(f"SELECT lowers to {sorted(kinds)}, not "
+                             f"{lowered or 'the stream fold'}: {sql}")
+    folds = []
+    fold = s._query_stream_fold
+    s._query_stream_fold = lambda *a: folds.append(1) or fold(*a)
+    b3_launches(reset=True)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    try:
+        got = s.run_sql(sql)
+    finally:
+        del s._query_stream_fold
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    if bool(folds) != (lowered is None):
+        raise AssertionError(f"SELECT took the {'fold' if folds else 'batch'}"
+                             f" path: {sql}")
+    ok = (got == want if "ORDER BY" in sql.split("FROM")[-1]
+          else collections.Counter(got) == collections.Counter(want))
+    if not ok or not want:
+        raise AssertionError(f"SELECT differs from numpy ({len(got)} rows "
+                             f"against {len(want)}): {sql}")
+    return {"ms": ms, "rows": len(got), "path": lowered or "stream fold",
+            "b3_launches": b3_launches()}
+
+
+def sql_selects(s, q17: collections.Counter) -> dict:
+    """Phase 24 (a)'s SELECTs, in the q17 Session: a grouped aggregate
+    (BatchHashAgg), a join of q17 with an MV over it (BatchHashJoin), an
+    ORDER BY ... LIMIT (BatchSort and BatchLimit) and a window function
+    (the stream fold), each equal to numpy over q17's numpy rows."""
+    rows = list(q17.elements())
+    out = {}
+    # grouped by auction: the batch agg's find-or-insert decides one
+    # group per auction of q17 (12,825 at the smoke's size)
+    per_auction = collections.defaultdict(lambda: [0, 0, 0])
+    for r in rows:
+        d = per_auction[r[0]]
+        d[0], d[1], d[2] = d[0] + 1, d[1] + r[2], max(d[2], r[5])
+    out["grouped_agg"] = timed_select(
+        s, "SELECT auction, count(*) AS n, sum(total_bids) AS bids, "
+           "max(max_price) AS top FROM q17 GROUP BY auction",
+        [(k, *v) for k, v in per_auction.items()], "BatchHashAgg")
+    # an MV over q17, backfilled from its table
+    s.run_sql("CREATE MATERIALIZED VIEW q17_days AS SELECT auction, "
+              "count(*) AS days, sum(total_bids) AS bids FROM q17 "
+              "GROUP BY auction")
+    while not s.backfill_done("q17_days"):
+        s.tick(generate=False)
+    per = collections.defaultdict(lambda: [0, 0])
+    for r in rows:
+        per[r[0]][0] += 1
+        per[r[0]][1] += r[2]
+    out["join"] = timed_select(
+        s, "SELECT q17.auction, q17.day, q17.total_bids, d.days, d.bids "
+           "FROM q17 JOIN q17_days AS d ON q17.auction = d.auction "
+           "WHERE q17.total_bids > 2",
+        [(r[0], r[1], r[2], *per[r[0]]) for r in rows if r[2] > 2],
+        "BatchHashJoin")
+    top = sorted(rows, key=lambda r: (-r[2], r[0], r[1]))[:10]
+    out["order_by_limit"] = timed_select(
+        s, "SELECT auction, day, total_bids FROM q17 "
+           "ORDER BY total_bids DESC, auction, day LIMIT 10",
+        [(r[0], r[1], r[2]) for r in top], "BatchLimit")
+    hot = [r for r in rows if r[2] > 2]
+    by_day = collections.defaultdict(list)
+    for r in hot:
+        by_day[r[1]].append(r[2])
+    out["window_fold"] = timed_select(
+        s, "SELECT auction, day, rank() OVER (PARTITION BY day ORDER BY "
+           "total_bids DESC) AS r FROM q17 WHERE total_bids > 2",
+        [(r[0], r[1], 1 + sum(t > r[2] for t in by_day[r[1]]))
+         for r in hot])
+    return out
+
+
+def run_sql_nexmark(device, auctions, bids, data) -> dict:
+    """Phase 24 (a): q105, q105 without its TopN (every group of the join's
+    output), q17, q18 and q7 by CREATE MATERIALIZED VIEW, each in a Session
+    of its own (one join arena live at a time), each MV equal to numpy
+    over the rows its source leaves emitted (the chunks of phase
+    13: a fresh host generator per leaf, seed 42); then the SELECTs in the
+    q17 Session."""
+    out = {}
+    q7_keys, q7_width = q7_sql_sizes(bids)
+    for name in SQL_NEXMARK_ORDER:
+        cfg = ({"join_key_capacity": q7_keys, "join_bucket_width": q7_width}
+               if name == "q7" else {})
+        s, r = run_sql_mv(device, name, cfg)
+        rows = s.mv_rows(name)
+        if name == "q105":
+            counts = q105_counts(auctions, bids)
+            want = sorted(sorted(counts.items(), key=lambda kv: (
+                -kv[1], kv[0][0], kv[0][1]))[:Q105_LIMIT])
+            got = sorted(((g[0], g[1]), g[2]) for g in rows)
+            if got != want:
+                raise AssertionError(
+                    f"SQL q105 differs from numpy's top {Q105_LIMIT}: "
+                    f"{len(set(got) - set(want))} extra, "
+                    f"{len(set(want) - set(got))} missing")
+            r["rows_out"] = len(got)
+        elif name == "q105_join":
+            counts = q105_counts(auctions, bids)
+            r["rows_out"] = gate_counter(name, collections.Counter(rows),
+                                         collections.Counter(
+                (k[0], k[1], n) for k, n in counts.items()))
+            r["join_rows"] = sum(counts.values())
+        else:
+            want = {"q17": lambda: data.expected("q17"),
+                    "q18": lambda: q18_expected(bids),
+                    "q7": lambda: q7_sql_expected(bids)}[name]()
+            r["rows_out"] = gate_counter(name, collections.Counter(rows),
+                                         want)
+        if name == "q17":
+            r["selects"] = sql_selects(s, want)
+        s.close()
+        del s
+        out[name] = r
+    return out
+
+
+def sql_literals(kinds: str, cols, i: int) -> str:
+    """Row ``i`` of numpy columns of physical values as a VALUES tuple."""
+    import datetime as dt
+    from risingwave_tpu_torch.common import GLOBAL_STRING_DICT as sd
+    vals = []
+    for kind, c in zip(kinds, cols):
+        v = int(c[i])
+        if kind == "i":
+            vals.append(str(v))
+        elif kind == "s":
+            vals.append("'" + sd.lookup(v).replace("'", "''") + "'")
+        elif kind == "d":
+            vals.append(f"{'-' if v < 0 else ''}{abs(v) // 100}."
+                        f"{abs(v) % 100:02d}")
+        else:
+            vals.append("DATE '" + (dt.date(1970, 1, 1) + dt.timedelta(
+                days=v)).isoformat() + "'")
+    return "(" + ", ".join(vals) + ")"
+
+
+def insert_sql(name: str, cols) -> list:
+    """Multi-row INSERT statements of SQL_INSERT_ROWS rows each."""
+    kinds, n = SQL_TPCH_KINDS[name], len(cols[0])
+    return [f"INSERT INTO {name} VALUES " + ", ".join(
+        sql_literals(kinds, cols, i)
+        for i in range(lo, min(lo + SQL_INSERT_ROWS, n)))
+        for lo in range(0, n, SQL_INSERT_ROWS)]
+
+
+def run_sql_tpch(device, sf: float = None, seed: int = TPCH_SEED) -> dict:
+    """Phase 24 (b): tests/test_tpch.py's tables, loaded from phase 21's
+    generator by INSERT statements, q3 and q10 created over them by SQL and
+    backfilled, then one RF1 by INSERT, one RF2 by DELETE ... WHERE ... IN
+    (...) and one UPDATE of a customer's c_mktsegment; both MVs equal to
+    numpy after the backfill and after each refresh (revenue as a scaled
+    int64); load rows/s, the staleness of each refresh (its statements to
+    the end of the FLUSH after them), B1 and B3 launches."""
+    from risingwave_tpu_torch.common import GLOBAL_STRING_DICT as sd
+    from risingwave_tpu_torch.frontend import BuildConfig, Session
+    rt_mod = importlib.import_module("risingwave_tpu_torch.ops.rank_totals")
+    sf = SQL_TPCH_SF if sf is None else sf
+    live = tpch_tables(sf, seed)
+    new, gone = tpch_refresh(np.random.default_rng(seed + 1), 0, sf, live)
+    n_cust, n_ord = len(live["customer"][0]), len(live["orders"][0])
+    # keys of the largest join (orders), twice over; the most rows of one
+    # key on either side of any join: a nation's customers' orders
+    width = pow2_at_least(1.5 * 0.08 * n_ord / 25 * 4)
+    cfg = BuildConfig(chunk_capacity=CHUNK,
+                      agg_table_capacity=pow2_at_least(2 * n_cust, 1 << 10),
+                      join_key_capacity=pow2_at_least(2 * n_ord, 1 << 10),
+                      join_bucket_width=width)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    s = Session(source_chunk_capacity=CHUNK, config=cfg, device=device)
+    out = {"sf": sf, "rows": {k: len(v[0]) for k, v in live.items()},
+           "key_capacity": cfg.join_key_capacity, "bucket_width": width}
+    for ddl in SQL_TPCH_DDL.values():
+        s.run_sql(ddl)
+    stmts = [st for name, cols in live.items()
+             for st in insert_sql(name, cols)]
+    b3_launches(reset=True)
+    rt_mod.rank_totals.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for st in stmts:
+        s.run_sql(st)
+    s.flush()
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    n_rows = sum(out["rows"].values())
+    out.update(statements=len(stmts), load_s=load_s,
+               load_rows_per_s=n_rows / load_s)
+    out["create"] = {}
+    for name, sql in SQL_TPCH_MVS.items():
+        t0 = time.perf_counter()
+        s.run_sql(sql)
+        barriers = 0
+        while not s.backfill_done(name):
+            s.tick()
+            barriers += 1
+        torch.cuda.synchronize()
+        out["create"][name] = {"s": time.perf_counter() - t0,
+                               "barriers": barriers,
+                               "joins": check_not_grown(s, name)}
+    out["gate_backfill"] = tpch_gate(s, live, "the backfill")
+
+    def refresh(kind: str, statements: list, rows: int) -> None:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for st in statements:
+            s.run_sql(st)
+        s.flush()
+        torch.cuda.synchronize()
+        out.setdefault("refresh", []).append({
+            "kind": kind, "rows": rows, "statements": len(statements),
+            "staleness_ms": (time.perf_counter() - t0) * 1e3})
+        out[f"gate_{kind}"] = tpch_gate(s, live, f"the {kind}")
+
+    # RF1: new orders and their lineitems
+    for name in ("orders", "lineitem"):
+        live[name] = [np.concatenate([a, b])
+                      for a, b in zip(live[name], new[name])]
+    refresh("RF1", insert_sql("orders", new["orders"])
+            + insert_sql("lineitem", new["lineitem"]),
+            sum(len(new[n][0]) for n in new))
+    # RF2: the first loaded orders, by key
+    keys = ", ".join(str(int(k)) for k in gone)
+    rows = 0
+    for name, col in (("orders", "o_orderkey"), ("lineitem", "l_orderkey")):
+        sel = np.isin(live[name][0], gone)
+        rows += int(sel.sum())
+        live[name] = [c[~sel] for c in live[name]]
+    refresh("RF2", [f"DELETE FROM lineitem WHERE l_orderkey IN ({keys})",
+                    f"DELETE FROM orders WHERE o_orderkey IN ({keys})"],
+            rows)
+    # UPDATE: the customer outside BUILDING with the most q3-eligible
+    # revenue moves into it, so q3 changes
+    c = live["customer"]
+    building = sd.intern("BUILDING")
+    with_all = dict(live, customer=[*c[:6], np.full_like(c[6], building),
+                                    c[7]])
+    o = live["orders"]
+    cust_of = dict(zip(o[0].tolist(), o[1].tolist()))
+    gain = collections.Counter()
+    for (okey, _, _), v in tpch_q3(with_all).items():
+        gain[cust_of[okey]] += v
+    seg = dict(zip(c[0].tolist(), c[6].tolist()))
+    who = max((k for k in gain if seg[k] != building), key=gain.get)
+    c[6] = np.where(c[0] == who, building, c[6])
+    refresh("UPDATE", [f"UPDATE customer SET c_mktsegment = 'BUILDING' "
+                       f"WHERE c_custkey = {who}"], 1)
+    torch.cuda.synchronize()
+    out["b1_launches"] = rt_mod.rank_totals.launches
+    out["b3_launches"] = b3_launches()
+    out["peak_device_bytes"] = torch.cuda.max_memory_allocated()
+    s.close()
+    return out
+
+
 @contextlib.contextmanager
 def profiled():
     """A CUDA profiler session around the block; yields the profiler."""
@@ -4663,7 +5188,6 @@ def main() -> int:
     b3_paths["q20 fragmented"] = q20f["b3_launches"]
     print("q20_fragmented: " + json.dumps(q20f) + f" [{card}]")
     lap("phase 22 (c) q20 fragmented")
-    del ext_data
 
     # -- phase 23: approx_count_distinct's HLL lanes per auction and
     # overall (one more epoch under the sync check), array_agg per bidder,
@@ -4687,6 +5211,24 @@ def main() -> int:
     b3_paths["json events"] = events["b3_launches"]
     print("json_events: " + json.dumps(events) + f" [{card}]")
     lap("phase 23 (c) json events")
+    # -- phase 24: SQL end to end through the port's Session: NEXmark
+    # q105 (also without its TopN), q17, q18 and q7 by CREATE MATERIALIZED
+    # VIEW (a Session each), the SELECTs over q17, then TPC-H q3 and q10
+    # over tables loaded by INSERT, through an RF1, an RF2 and an UPDATE
+    torch.cuda.empty_cache()
+    sql_nex = run_sql_nexmark(device, auctions, nbids, ext_data)
+    del ext_data
+    for name, r in sql_nex.items():
+        b3_paths[f"sql_{name}"] = r["b3_launches"]
+        if r["joins"]:
+            b1_paths[f"sql_{name}"] = r["b1_launches"]
+        print(f"sql_{name}: " + json.dumps(r) + f" [{card}]")
+    lap("phase 24 (a) sql nexmark")
+    sql_tpch = run_sql_tpch(device)
+    b1_paths["sql_tpch"] = sql_tpch["b1_launches"]
+    b3_paths["sql_tpch"] = sql_tpch["b3_launches"]
+    print("sql_tpch: " + json.dumps(sql_tpch) + f" [{card}]")
+    lap("phase 24 (b) sql tpch")
     if len(b3_inputs) != 13:
         raise AssertionError(f"kernel B3 inputs kept only at "
                              f"{sorted(b3_inputs)}")
@@ -4695,7 +5237,7 @@ def main() -> int:
             raise AssertionError(f"the {path} run never launched its "
                                  "kernel")
 
-    # -- phase 24: kernel times on the inputs their path gave them: B1 on
+    # -- phase 25: kernel times on the inputs their path gave them: B1 on
     # the q7 run's input with the most keyed rows and the busiest inputs of
     # q105, q5_hop and the TPC-H joins, B2 on the fused q7 run's last
     # flush, B3 on the q5 input of HASH_CASES, the q5 compaction's input
@@ -4819,9 +5361,9 @@ def main() -> int:
     epochs = {"fused q5": FUSED_TIMED_EPOCHS + 1,
               "fused q8": Q8_Q3_TIMED_EPOCHS + 1,
               "fused q3": Q8_Q3_TIMED_EPOCHS + 1}
-    lap("phase 24 kernel times")
+    lap("phase 25 kernel times")
 
-    # -- phase 24, continued: where the time goes (device busy share)
+    # -- phase 25, continued: where the time goes (device busy share)
     head = chunks[:2 * CHUNKS_PER_EPOCH]
     print("q7_trace: " + json.dumps(trace(q7_pipeline, head, device)))
     print("q5_trace: " + json.dumps(trace(q5_pipeline, head, device)))
@@ -4849,7 +5391,7 @@ def main() -> int:
         print(f"{path}_fused_trace: " + json.dumps(summary))
     fq3b.check()
 
-    lap("phase 24 traces")
+    lap("phase 25 traces")
     print("phase_seconds: " + json.dumps(phase_s))
     print(card)
     print(json.dumps({"kernels": [{
@@ -4859,7 +5401,7 @@ def main() -> int:
         "tpu_counterpart": "risingwave_tpu/ops/pallas_rank.py::_kernel",
         "path": "q7 executor; q7 executor (bench form); q7 recovery; "
                 "q105; q102; q5_hop; tpch; q9; q20; q101; q103; q104; "
-                "q106; q20 fragmented",
+                "q106; q20 fragmented; sql_q105; sql_q7; sql_tpch",
         "launches": q7_launches, "path_launches": b1_paths,
         "q105_input": q105_b1, "q5_hop_input": q5h_b1_t,
         "tpch_input": tpch_b1_t, "nexmark_ext_input": ext_b1_t,
@@ -4896,7 +5438,8 @@ def main() -> int:
                 "eowc_running, eowc recovery, dedup, dedup recovery, tpch, "
                 "q9, q17, q20, q101, q103, q104, q106, q17 fragmented "
                 "(parallelism 1 and 4, the sink run, its recovery), q20 "
-                "fragmented, hll, json events",
+                "fragmented, hll, json events, sql_q105, sql_q17, sql_q18, "
+                "sql_q7, sql_tpch",
         "launches": sum(b3_paths.values()), "path_launches": b3_paths,
         "launches_per_epoch": {p: b3_paths[p] / e
                                for p, e in epochs.items()},

@@ -1080,3 +1080,29 @@ def _eval_host_fn(e: "FunctionCall", cols) -> Column:
     dev = cols[0].data.device
     return Column(torch.from_numpy(vals[inv]).to(dev),
                   mask & torch.from_numpy(known[inv]).to(dev))
+
+
+#: the reference's functions evaluated on the host (its host callbacks and
+#: the rank-table readers). The planner moves residual join conditions that
+#: use one into a filter above an inner join; the names are the reference's,
+#: so plans split exactly where its do.
+HOST_CALLBACK_FNS = {
+    "lower", "upper", "trim", "ltrim", "rtrim", "substr", "substring",
+    "length", "concat_op", "like", "not_like",
+    "regexp_like", "regexp_count", "regexp_replace", "regexp_match",
+    "regexp_match_group", "split_part", "to_char", "array_access",
+    "array_length", "struct_field", "jsonb_get_field", "jsonb_get_elem",
+    "jsonb_get_field_text", "jsonb_get_elem_text", "jsonb_typeof",
+    "jsonb_array_length",
+    "str_rank", "str_less_than", "str_less_than_or_equal",
+    "str_greater_than", "str_greater_than_or_equal",
+}
+
+
+def uses_host_callback(e: Expr) -> bool:
+    if isinstance(e, FunctionCall):
+        return (e.name in HOST_CALLBACK_FNS
+                or any(uses_host_callback(a) for a in e.args))
+    if isinstance(e, Cast):
+        return uses_host_callback(e.arg)
+    return False

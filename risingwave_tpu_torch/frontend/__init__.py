@@ -1,3 +1,8 @@
-"""The frontend's runtime plumbing: queue sources, changelog buses and
-stream jobs, and the epoch conductor over tables and MVs
-(``frontend/runtime.py``). The SQL frontend itself is not ported yet."""
+"""The SQL frontend: parser → binder → planner → optimizer → the port's
+stream executors (``build.py``) and batch engine, under a ``Session``
+(``session.py``); the runtime plumbing (queue sources, changelog buses,
+stream jobs, the ``JobRuntime`` epoch conductor that ``Session`` and the
+hand-tree ``Cluster`` share) is ``runtime.py``."""
+
+from .build import BuildConfig  # noqa: F401
+from .session import Session, SqlError  # noqa: F401

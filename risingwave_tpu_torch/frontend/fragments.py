@@ -9,12 +9,13 @@ an equi-join) runs as fragments joined by exchange edges:
              ├─ PermitChannel → actor 1 ─┤  SimpleDispatcher each,
              └─ ...          → actor N-1─┘  then MergeExecutor
 
-The port has no planner, so these functions take what the reference reads
-off the plan node: the upstream executors, the keys, the agg calls or the
-join type, and the state tables. The N actors share one logical state
-table (one per join side): each writes only its own keys, and on recovery
-each keeps the stored rows whose key hashes to its shard (``load_shard``),
-so a job recovers at any parallelism.
+These functions take what the reference reads off the plan node: the
+upstream executors, the keys, the agg calls or the join type and
+condition, and the state tables (``frontend/build.py`` passes them). The
+N actors share one logical state table (one per join side): each writes
+only its own keys, and on recovery each keeps the stored rows whose key
+hashes to its shard (``load_shard``), so a job recovers at any
+parallelism.
 
 ``FragmentGraph`` is the job's root executor: its ``execute`` runs the
 actors as tasks beside the merge (the reference's StreamJob spawns the
@@ -119,12 +120,14 @@ def build_fragmented_agg(
     exchange_permits: int = EXCHANGE_PERMITS,
     table_capacity: int = 1 << 16,
     out_capacity: int = DEFAULT_CHUNK_CAPACITY,
+    hbm_group_budget: Optional[int] = None,
     device=DEFAULT_DEVICE,
 ) -> FragmentGraph:
     """A grouped agg as upstream fragment → N HashAgg actors → merge.
     ``state_table``: the agg's logical state table (schema
     ``hash_agg.agg_state_schema``, pk the group keys), shared by the
-    actors; None for none."""
+    actors; None for none. ``hbm_group_budget``: each actor's cap on live
+    groups (``HashAggExecutor``)."""
     n = parallelism
     in_chans = [open_channel(exchange_permits) for _ in range(n)]
     out_chans = [open_channel(exchange_permits) for _ in range(n)]
@@ -134,7 +137,8 @@ def build_fragmented_agg(
         ChannelSource(in_chans[i], upstream.schema), list(group_keys),
         list(agg_calls), state_table=_shared(state_table),
         table_capacity=table_capacity, out_capacity=out_capacity,
-        load_shard=(i, n), device=device) for i in range(n)]
+        load_shard=(i, n), hbm_group_budget=hbm_group_budget,
+        device=device) for i in range(n)]
     runs = [_pump(upstream, dispatcher, in_chans)]
     runs += [_pump(aggs[i], SimpleDispatcher(out_chans[i]), [out_chans[i]])
              for i in range(n)]
@@ -145,18 +149,22 @@ def build_fragmented_agg(
 def build_fragmented_join(
     left: Executor, right: Executor, left_keys: Sequence[int],
     right_keys: Sequence[int], join_type: JoinType = JoinType.INNER, *,
+    condition=None,
     left_state_table: Optional[StateTable] = None,
     right_state_table: Optional[StateTable] = None,
     parallelism: int = FRAGMENT_PARALLELISM,
     exchange_permits: int = EXCHANGE_PERMITS,
     key_capacity: int = 1 << 13, bucket_width: int = 16,
     out_capacity: int = DEFAULT_CHUNK_CAPACITY,
+    hbm_key_budget: Optional[int] = None,
     device=DEFAULT_DEVICE,
 ) -> FragmentGraph:
     """An equi-join as two upstream fragments → N HashJoin actors → merge.
     Both sides hash-dispatch by their join keys with the same vnode hash,
     so matching keys meet on one actor. The state tables (pk: the join
-    keys, then the side's stream pk) are shared by the actors."""
+    keys, then the side's stream pk) are shared by the actors.
+    ``condition``: the residual non-equi predicate; ``hbm_key_budget``:
+    each actor's cap on live join keys (``HashJoinExecutor``)."""
     n = parallelism
     l_chans = [open_channel(exchange_permits) for _ in range(n)]
     r_chans = [open_channel(exchange_permits) for _ in range(n)]
@@ -167,10 +175,12 @@ def build_fragmented_join(
         ChannelSource(l_chans[i], left.schema),
         ChannelSource(r_chans[i], right.schema),
         list(left_keys), list(right_keys), join_type=join_type,
+        condition=condition,
         left_state_table=_shared(left_state_table),
         right_state_table=_shared(right_state_table),
         key_capacity=key_capacity, bucket_width=bucket_width,
-        out_capacity=out_capacity, load_shard=(i, n), device=device)
+        out_capacity=out_capacity, load_shard=(i, n),
+        hbm_key_budget=hbm_key_budget, device=device)
         for i in range(n)]
     runs = [_pump(left, l_disp, l_chans), _pump(right, r_disp, r_chans)]
     runs += [_pump(joins[i], SimpleDispatcher(out_chans[i]), [out_chans[i]])

@@ -9,7 +9,8 @@ Materialize on a ``ChangelogBus``: a job that scans it subscribes a
 ``QueueSource`` there and backfills from its state table
 (``stream/backfill.py``), so a table is itself a job (DML queue →
 Materialize) and an MV over tables is a job of Backfill leaves.
-``Cluster`` holds tables and MVs in one process and conducts their epochs.
+``JobRuntime`` holds tables and MVs in one process and conducts their
+epochs; ``Cluster`` drives hand-built trees over it.
 """
 
 from __future__ import annotations
@@ -121,17 +122,14 @@ class StreamJob:
                 pass
 
 
-class Cluster:
-    """Tables and MVs in one process, and the epoch conductor over them
-    (the reference Session's table jobs, TableScan leaves and ``tick``).
-
-    ``create_table`` starts a table's job and registers its DML handle;
-    ``write`` stages a DML chunk; ``tick`` drains the staged
-    DML into the tables' queues, injects one barrier into every table job
-    (MV jobs get it through the buses), awaits it on every job and, for a
-    checkpoint, commits the store. ``create_mv`` builds an MV over
-    ``scan`` leaves, pushes their init barrier and awaits it: the first
-    backfill batch flows then, the rest one batch per later barrier."""
+class JobRuntime:
+    """What a single-process cluster of stream jobs shares: the store, the
+    DML manager, the event loop, the jobs with their table queues and
+    Backfill leaves, and the two halves of an epoch: ``inject`` a barrier
+    into the table queues (after the staged DML) and ``complete`` it on
+    every job, committing the store on a checkpoint. ``Cluster`` conducts
+    hand-built trees over it, ``frontend.session.Session`` SQL.
+    ``next_table_id`` is the subclass's (its own counter, or a catalog's)."""
 
     def __init__(self, device=DEFAULT_DEVICE,
                  chunk_capacity: int = DEFAULT_CHUNK_CAPACITY,
@@ -144,41 +142,44 @@ class Cluster:
         self.store = MemoryStateStore()
         self.dml = DmlManager()
         self.loop = asyncio.new_event_loop()
-        self.epoch = 1
+        self.epoch = 1              # the last completed epoch
         self.jobs: dict[str, StreamJob] = {}
-        self.table_ids: dict[str, int] = {}
         self.table_queues: list[QueueSource] = []
         self.backfills: dict[str, list[BackfillExecutor]] = {}
-        self._next_id = 1
         self._pending: list[BackfillExecutor] = []
         self.last_commit_s = 0.0   # the last checkpoint's store commit
 
     def next_table_id(self) -> int:
-        """A table id of the cluster's store no table uses yet."""
-        self._next_id += 1
-        return self._next_id - 1
+        raise NotImplementedError
 
     def _await(self, coro):
         return self.loop.run_until_complete(coro)
 
-    def create_table(self, name: str, schema: Schema,
-                     pk: Sequence[int]) -> StreamJob:
-        tid = self.next_table_id()
-        q = QueueSource(schema)
-        mat = MaterializeExecutor(q, StateTable(self.store, tid, schema, pk))
-        job = StreamJob(name, mat, [q])
-        self.jobs[name] = job
-        self.table_ids[name] = tid
-        self.dml.register(tid, TableDmlHandle(q.push))
-        self.table_queues.append(q)
+    def start_job(self, job: StreamJob,
+                  inits: Sequence[tuple[QueueSource, Sequence[Message]]]
+                  ) -> StreamJob:
+        """Start ``job`` and cut it in at the current epoch: each queue of
+        ``inits`` takes its messages and the epoch's barrier (a scan leaf
+        then sends its first batch), and the barrier is awaited."""
+        self.jobs[job.name] = job
         job.start(self.loop)
-        q.push(Barrier.new(self.epoch))
+        for q, msgs in inits:
+            for m in msgs:
+                q.push(m)
+            q.push(Barrier.new(self.epoch))
         self._await(job.wait_barrier(self.epoch))
         return job
 
-    def write(self, name: str, chunk: StreamChunk) -> None:
-        """Stage a DML chunk (inserts, deletes, updates) for ``name``."""
-        self.dml.stage(self.table_ids[name], chunk)
+    def start_table_job(self, name: str, table_id: int, queue: QueueSource,
+                        source: Executor, schema: Schema,
+                        pk: Sequence[int]) -> StreamJob:
+        """A table as a job: its DML ``queue`` (read through ``source``,
+        which may add columns) into a Materialize of table ``table_id``."""
+        mat = MaterializeExecutor(
+            source, StateTable(self.store, table_id, schema, list(pk)))
+        self.dml.register(table_id, TableDmlHandle(queue.push))
+        self.table_queues.append(queue)
+        return self.start_job(StreamJob(name, mat, [queue]), [(queue, ())])
 
     def scan(self, name: str) -> BackfillExecutor:
         """A TableScan leaf over table or MV ``name``: a Backfill over its
@@ -194,43 +195,31 @@ class Cluster:
         self._pending.append(bf)
         return bf
 
-    def create_mv(self, name: str, mv: MaterializeExecutor) -> StreamJob:
-        """Start the job of the tree ``mv``, built over leaves from
-        ``scan``."""
-        leaves, self._pending = self._pending, []
-        job = StreamJob(name, mv, [bf.input for bf in leaves])
-        self.jobs[name] = job
-        self.backfills[name] = leaves
-        job.start(self.loop)
-        for bf in leaves:
-            bf.input.push(Barrier.new(self.epoch))
-        self._await(job.wait_barrier(self.epoch))
-        return job
-
     def backfill_done(self, name: str) -> bool:
         return all(bf.done for bf in self.backfills[name])
 
-    def tick(self, checkpoint: bool = True) -> int:
-        """One barrier through every job; returns its epoch."""
-        self.epoch += 1
-        barrier = Barrier.new(self.epoch, checkpoint=checkpoint)
+    def inject(self, barrier: Barrier) -> None:
+        """The staged DML, then ``barrier``, into every table's queue (MV
+        jobs get it through the buses)."""
         self.dml.drain_into_epoch()
         for q in self.table_queues:
             q.push(barrier)
 
+    def complete(self, epoch: int, checkpoint: bool) -> None:
+        """Await ``epoch``'s barrier on every job; commit on a checkpoint."""
         async def collect():
-            for job in self.jobs.values():
-                await job.wait_barrier(self.epoch)
+            await asyncio.gather(*(job.wait_barrier(epoch)
+                                   for job in self.jobs.values()))
 
         self._await(collect())
         if checkpoint:
             t0 = time.perf_counter()
-            self.store.commit(self.epoch)
+            self.commit(epoch)
             self.last_commit_s = time.perf_counter() - t0
-        return self.epoch
+        self.epoch = epoch
 
-    def mv_rows(self, name: str) -> list:
-        return self.jobs[name].pipeline.rows()
+    def commit(self, epoch: int) -> None:
+        self.store.commit(epoch)
 
     def close(self) -> None:
         for job in self.jobs.values():
@@ -246,3 +235,56 @@ class Cluster:
 
         self._await(cancel_rest())
         self.loop.close()
+
+
+class Cluster(JobRuntime):
+    """Hand-built tables and MVs (the reference Session's table jobs,
+    TableScan leaves and ``tick``, with no SQL).
+
+    ``create_table`` starts a table's job and registers its DML handle;
+    ``write`` stages a DML chunk; ``tick`` drains the staged DML into the
+    tables' queues, injects one barrier, awaits it on every job and, for a
+    checkpoint, commits the store. ``create_mv`` builds an MV over
+    ``scan`` leaves, pushes their init barrier and awaits it: the first
+    backfill batch flows then, the rest one batch per later barrier."""
+
+    def __init__(self, device=DEFAULT_DEVICE,
+                 chunk_capacity: int = DEFAULT_CHUNK_CAPACITY,
+                 batch_rows: Optional[int] = None):
+        super().__init__(device, chunk_capacity, batch_rows)
+        self.table_ids: dict[str, int] = {}
+        self._next_id = 1
+
+    def next_table_id(self) -> int:
+        """A table id of the cluster's store no table uses yet."""
+        self._next_id += 1
+        return self._next_id - 1
+
+    def create_table(self, name: str, schema: Schema,
+                     pk: Sequence[int]) -> StreamJob:
+        tid = self.next_table_id()
+        q = QueueSource(schema)
+        self.table_ids[name] = tid
+        return self.start_table_job(name, tid, q, q, schema, pk)
+
+    def write(self, name: str, chunk: StreamChunk) -> None:
+        """Stage a DML chunk (inserts, deletes, updates) for ``name``."""
+        self.dml.stage(self.table_ids[name], chunk)
+
+    def create_mv(self, name: str, mv: MaterializeExecutor) -> StreamJob:
+        """Start the job of the tree ``mv``, built over leaves from
+        ``scan``."""
+        leaves, self._pending = self._pending, []
+        self.backfills[name] = leaves
+        return self.start_job(StreamJob(name, mv, [bf.input for bf in leaves]),
+                              [(bf.input, ()) for bf in leaves])
+
+    def tick(self, checkpoint: bool = True) -> int:
+        """One barrier through every job; returns its epoch."""
+        epoch = self.epoch + 1
+        self.inject(Barrier.new(epoch, checkpoint=checkpoint))
+        self.complete(epoch, checkpoint)
+        return epoch
+
+    def mv_rows(self, name: str) -> list:
+        return self.jobs[name].pipeline.rows()

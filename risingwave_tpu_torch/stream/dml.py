@@ -32,6 +32,13 @@ class DmlManager:
     def register(self, table_id: int, handle: TableDmlHandle) -> None:
         self._handles.setdefault(table_id, []).append(handle)
 
+    def unregister_table(self, table_id: int) -> None:
+        self._handles.pop(table_id, None)
+        self._staged.pop(table_id, None)
+
+    def has_staged(self) -> bool:
+        return bool(self._staged)
+
     def stage(self, table_id: int, chunk: StreamChunk) -> None:
         """Buffer a DML chunk; it reaches the table inside the next epoch."""
         if table_id not in self._handles:
